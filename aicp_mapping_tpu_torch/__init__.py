@@ -5,8 +5,10 @@ It mirrors the JAX package's module paths and public names; the JAX package
 is the reference every ported function is tested against. The per-frame
 AICP path (voxel downsample -> hough prefilter -> voxel-set overlap ->
 auto-tuned trimmed ICP -> gates) runs end to end through
-`App(config, device=...).process_cloud(...)`; the three TPU kernels on that
-path are hand-written CUDA C++ for sm_90a (see `_kernels`).
+`App(config, device=...).process_cloud(...)`, and map-scale localization
+against a prior map through the App's map modes and
+`parallel.ShardedMapLocalizer`; the TPU kernels on those paths are
+hand-written CUDA C++ for sm_90a (see `_kernels`).
 
 This package imports torch and numpy only, never jax or the JAX package:
 the machines that run it have no JAX.

@@ -1,15 +1,17 @@
 """The port's hand-written CUDA kernels: build, loading and launch counts.
 
 The sources in `csrc/` are CUDA C++ for Hopper (sm_90a) with a plain C
-interface. At first use they are compiled by `nvcc` into one shared
-library under `build/aicp_torch_kernels/<source hash>/` at the root of the
-checkout, and loaded with `ctypes`; a changed source gets a new hash and so
-a new build. Nothing here runs at import time, so the CPU-only test
+interface. At first use each is compiled by its own `nvcc`, all at once,
+and the objects are linked into one shared library under
+`build/aicp_torch_kernels/<source hash>/` at the root of the checkout,
+loaded with `ctypes`; a changed source gets a new hash and so a new
+build. Nothing here runs at import time, so the CPU-only test
 machines import the package without `nvcc` or a card.
 
-Every kernel wrapper (in `ops/knn.py` and `ops/normals.py`) adds one to its
-launch count right after its kernel was launched, and nowhere else, so a
-run can show that the main path really went through the kernels.
+Every kernel wrapper (in `ops/knn.py`, `ops/normals.py` and
+`ops/banded_nn.py`) adds one to its launch count right after its kernel
+was launched, and nowhere else, so a run can show that the main path
+really went through the kernels.
 """
 from __future__ import annotations
 
@@ -26,10 +28,11 @@ BUILD_ROOT = (Path(__file__).resolve().parents[2] / "build"
               / "aicp_torch_kernels")
 LIB_NAME = "libaicp_torch_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 # One count per kernel, keyed by the name chip_smoke.py reports.
-_launches = {"nn_payload": 0, "banded_moments": 0, "radius_moments": 0}
+_launches = {"nn_payload": 0, "banded_moments": 0, "radius_moments": 0,
+             "banded_nn_payload_stream": 0}
 _lib = None
 _lock = threading.Lock()
 
@@ -43,6 +46,10 @@ _SIGNATURES = {
     "aicp_banded_moments": (_P, _P, _I, _P, _I, _I, _I, _F, _P, _P),
     # ps, ms, n, rad2, out, stream
     "aicp_radius_moments": (_P, _P, _I, _F, _P, _P),
+    # q, m, rs, rpen, n, payload, p, starts, tile_m, tile_n, band,
+    # dist_out, payload_out, stream
+    "aicp_banded_nn_payload_stream": (_P, _I, _P, _P, _I, _P, _I, _P, _I, _I,
+                                      _I, _P, _P, _P),
 }
 
 
@@ -80,22 +87,40 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _run(cmds: list) -> None:
+    """Run the commands at once; raise with the output of any that fail."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    errors = []
+    for cmd, proc in procs:
+        output = proc.communicate()[0]
+        if proc.returncode != 0:
+            errors.append(" ".join(cmd) + "\n" + output)
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+
+
 def build() -> Path:
-    """Compile the kernels unless this source hash is already built;
-    returns the shared library's path. Safe across processes: each writes
-    its own temporary file and renames it into place."""
+    """Compile the kernels unless this source hash is already built: one
+    `nvcc` per source, started together, then one link; returns the shared
+    library's path. Safe across processes: each writes its own temporary
+    files and renames the library into place."""
     out = BUILD_ROOT / source_hash() / LIB_NAME
     if out.exists():
         return out
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError("kernel build failed:\n" + " ".join(cmd) + "\n"
-                           + proc.stdout + proc.stderr)
+    tag = os.getpid()
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [out.with_name(f"{s.stem}.{tag}.o") for s in srcs]
+    _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+          for s, o in zip(srcs, objs)])
+    tmp = out.with_name(f"{LIB_NAME}.{tag}.tmp")
+    _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+           *[str(o) for o in objs]]])
+    for o in objs:
+        o.unlink()
     os.replace(tmp, out)
     return out
 

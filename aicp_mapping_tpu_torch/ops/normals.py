@@ -9,11 +9,15 @@ each point's valid neighbours with |q - r|^2 <= r^2 (difference form, see
   `_radius_moments_xla`); `radius_moments_kernel` wraps kernel K3.
 - `sorted_radius_moments`: plain banded version on a Morton-sorted cloud
   (twin of `sorted_radius_moments`, same band/tm/tn semantics);
-  `sorted_radius_moments_kernel` wraps kernel K2.
+  `sorted_radius_moments_kernel` wraps kernel K2, which computes f32
+  moments at any block count and so serves both TPU banded kernels (the
+  bf16 split one up to 64 blocks and the f32 one above).
+- `radius_normals`: normals + curvature from radius moments, banded
+  (`_radius_moments_banded`) or exhaustive by shape.
 
 A wrapper runs its plain version on a CPU tensor and launches its kernel
-on a CUDA tensor, or raises. kNN normals (`estimate_normals`) and
-`radius_normals` are not ported yet (ROADMAP Q1 #10-#11).
+on a CUDA tensor, or raises. kNN normals (`estimate_normals`) are not
+ported yet (ROADMAP Q1 #11).
 """
 from __future__ import annotations
 
@@ -23,8 +27,19 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from .banded_nn import banded_window_starts
+from .banded_nn import SENTINEL, banded_window_starts, morton_codes
 from .knn import sq_dists
+
+_BIG = 3.4e38
+# Moments dispatch by shape (never by device): clouds of at least this many
+# points, in whole 1024-point blocks, use the banded moments (kernel K2) —
+# what the TPU computes at these sizes — and all others the exhaustive
+# moments (kernel K3). The device then only picks kernel or plain twin.
+BANDED_MIN_POINTS = 16384
+
+
+def banded_by_shape(n: int) -> bool:
+    return n >= BANDED_MIN_POINTS and n % 1024 == 0
 
 
 def _features(points: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -119,6 +134,36 @@ def sorted_radius_moments_kernel(ps: torch.Tensor, ms: torch.Tensor,
     _kernels.check_status(status, "banded_moments")
     _kernels.count_launch("banded_moments")
     return out
+
+
+def _radius_moments_banded(points: torch.Tensor, mask: torch.Tensor,
+                           radius, cell_size: float = 2.0, band: int = 8,
+                           tm: int = 512, tn: int = 1024) -> torch.Tensor:
+    """Morton-banded (N, 10) moments in the ORIGINAL point order: one
+    stable sort at `cell_size` over the cloud's own origin, the banded
+    moments (K2 or its twin) in sorted order, then the inverse
+    permutation."""
+    origin = torch.where(mask[:, None], points, _BIG).amin(0)
+    codes = morton_codes(points, mask, origin, cell_size)
+    codes_s, perm = torch.sort(codes, stable=True)
+    out_sorted = sorted_radius_moments_kernel(
+        points[perm], codes_s != SENTINEL, codes_s, radius, band, tm, tn)
+    out = torch.empty_like(out_sorted)
+    out[perm] = out_sorted
+    return out
+
+
+def radius_normals(points: torch.Tensor, mask: torch.Tensor, radius,
+                   viewpoint=None):
+    """Normals + curvature from fixed-radius neighbourhoods: (normals
+    (N, 3), curvature (N,), n_neighbors (N,)). Banded moments for
+    n >= 16,384 in whole 1024-blocks, exhaustive (K3) otherwise — by shape
+    on every device (ROADMAP Q3)."""
+    if banded_by_shape(points.shape[0]):
+        M = _radius_moments_banded(points, mask, radius)
+    else:
+        M = radius_moments_kernel(points, mask, radius)
+    return moments_to_normals(M, points, mask, viewpoint)
 
 
 def _check(name: str, points: torch.Tensor, mask: torch.Tensor) -> str:

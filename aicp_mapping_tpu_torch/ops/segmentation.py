@@ -14,15 +14,10 @@ from __future__ import annotations
 import torch
 
 from .banded_nn import SENTINEL, morton_codes
-from .normals import (moments_to_normals, radius_moments_kernel,
-                      sorted_radius_moments_kernel)
+from .normals import (banded_by_shape, moments_to_normals,
+                      radius_moments_kernel, sorted_radius_moments_kernel)
 
 _BIG = 3.4e38
-# Moments dispatch by shape (never by device): clouds of at least this many
-# points, in whole 1024-point blocks, use the banded moments (kernel K2) —
-# what the TPU computes at these sizes — and all others the exhaustive
-# moments (kernel K3). The device then only picks kernel or plain twin.
-BANDED_MIN_POINTS = 16384
 
 
 def _hough_key(points: torch.Tensor, normals: torch.Tensor,
@@ -58,8 +53,7 @@ def moments_for(ps: torch.Tensor, ms: torch.Tensor, codes_s: torch.Tensor,
                 radius) -> torch.Tensor:
     """Neighbourhood moments of a Morton-sorted cloud: banded for
     n >= 16,384 in whole 1024-blocks, exhaustive otherwise."""
-    n = ps.shape[0]
-    if n >= BANDED_MIN_POINTS and n % 1024 == 0:
+    if banded_by_shape(ps.shape[0]):
         return sorted_radius_moments_kernel(ps, ms, codes_s, radius)
     return radius_moments_kernel(ps, ms, radius)
 

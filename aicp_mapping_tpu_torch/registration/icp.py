@@ -1,8 +1,9 @@
 """Auto-tuned trimmed point-to-plane ICP, PyTorch port of
 `aicp_mapping_tpu.registration.icp`.
 
-matcher:   kernel K1 (`ops.knn.nn_payload_kernel`) on a CUDA tensor, its
-           plain twin on CPU
+matcher:   kernel K1 (`ops.knn.nn_payload_kernel`) over the whole
+           reference, or against a map-scale reference the Morton-banded
+           kernel K5 (`ops.banded_nn`); on a CPU tensor their plain twins
 outlier:   trimmed-distance filter with a histogram quantile, globally or
            per normal-space bucket, optional max match distance
 minimizer: point-to-plane (or point-to-point) 6x6 normal equations,
@@ -22,6 +23,9 @@ import numpy as np
 import torch
 
 from ..geometry import se3
+from ..ops.banded_nn import (banded_prepare_payload, banded_window_starts,
+                             morton_codes, nn_payload_banded_stream_kernel,
+                             payload_rows)
 from ..ops.knn import nn_payload_kernel
 from ..ops.quantile import masked_quantile_hist
 
@@ -35,10 +39,9 @@ class ICPConfig:
     """Static solver configuration — the fields and defaults of the JAX
     `ICPConfig` (see its docstrings for each field's meaning).
 
-    `use_pallas` only selects a TPU kernel in JAX and is ignored here: a
-    CUDA tensor always goes through kernel K1. `axis_name` (SPMD) and the
-    banded matcher (`nn_mode="banded"`, or `"auto"` at N >= 32,768 on
-    CUDA) are not ported yet and raise."""
+    `use_pallas` only selects a TPU kernel in JAX and is ignored here: the
+    matcher is chosen by `solver_plan`. `axis_name` (SPMD) is not ported
+    yet and raises."""
 
     max_iterations: int = 20
     min_diff_trans: float = 0.01
@@ -76,14 +79,17 @@ def solver_plan(config: ICPConfig, M: int, N: int, device) -> dict:
     """Which matcher `point_to_plane_icp` takes for (reading M, reference
     N) on `device`, and whether it runs coarse-to-fine.
 
-    {"nn": "banded" | "kernel" | "plain", "coarse": bool}: "kernel" is K1
-    (every shape on CUDA), "plain" its twin on CPU; "banded" is not ported
-    and makes the solver raise."""
+    {"nn": "banded" | "kernel" | "plain", "coarse": bool}. "kernel" is K1
+    over the whole reference (every shape on CUDA), "plain" its twin on
+    CPU. "banded" is the Morton-banded matcher, under `nn_mode="auto"`
+    chosen by shape on every device (N >= 32,768, M % 512 == 0,
+    N % 1024 == 0; ROADMAP Q3): K5 at any number of reference blocks, the
+    plain twin on CPU. (JAX also picks a VMEM-resident or a streaming
+    kernel at 64 blocks; on the card one kernel serves both.)"""
     is_cuda = torch.device(device).type == "cuda"
     aligned = M % 512 == 0 and N % 1024 == 0
     banded = (config.nn_mode == "banded"
-              or (config.nn_mode == "auto" and is_cuda and N >= 32768
-                  and aligned))
+              or (config.nn_mode == "auto" and N >= 32768 and aligned))
     nn = "banded" if banded else ("kernel" if is_cuda else "plain")
     d = config.coarse_decimation
     coarse = (config.coarse_iterations > 0 and d > 1
@@ -106,10 +112,6 @@ def point_to_plane_icp(reading_points: torch.Tensor,
             "ICPConfig.axis_name: distributed ICP is ROADMAP Q1 #13")
     M, N = reading_points.shape[0], reference_points.shape[0]
     plan = solver_plan(config, M, N, reading_points.device)
-    if plan["nn"] == "banded":
-        raise NotImplementedError(
-            "banded matcher (nn_mode='banded', or 'auto' at N >= 32768 on "
-            "CUDA): ROADMAP Q1 #10 / Q2 #4-#5")
 
     if plan["coarse"]:
         d = config.coarse_decimation
@@ -137,16 +139,15 @@ def point_to_plane_icp(reading_points: torch.Tensor,
     p2plane = config.error_metric == "point_to_plane"
     if config.error_metric not in ("point_to_plane", "point_to_point"):
         raise ValueError(f"unknown error_metric {config.error_metric!r}")
-    # (N, 8) payload of the matcher: [point, normal, 0, 0]
-    extra = (reference_normals if p2plane
-             else torch.zeros((N, 3), dtype=torch.float32, device=dev))
-    payload = torch.cat([reference_points, extra,
-                         torch.zeros((N, 2), dtype=torch.float32,
-                                     device=dev)], dim=1).contiguous()
-    work_points = reading_points
-    work_mask = reading_mask.contiguous()
-    reference_points = reference_points.contiguous()
-    reference_mask = reference_mask.contiguous()
+    ref_normals = reference_normals if p2plane else None
+    if plan["nn"] == "banded":
+        match, work_points, work_mask, inv_q = _banded_matcher(
+            config, reading_points, reading_mask, reference_points,
+            ref_normals, reference_mask, init_T)
+    else:
+        match = _full_matcher(reference_points, ref_normals, reference_mask)
+        work_points, work_mask = reading_points, reading_mask.contiguous()
+        inv_q = None
     m_f = work_mask.to(torch.float32)
     degen = config.degeneracy_threshold > 0.0
     mmd2 = (float(np.float32(config.max_match_dist ** 2))
@@ -155,8 +156,7 @@ def point_to_plane_icp(reading_points: torch.Tensor,
 
     def iteration(T):
         p = se3.transform_points(T, work_points)
-        dist2, pout = nn_payload_kernel(p, work_mask, reference_points,
-                                        reference_mask, payload)
+        dist2, pout = match(p, work_mask)
         q = pout[:, :3]
         n = pout[:, 3:6] if p2plane else None
         matched = work_mask & (dist2 < _VALID_DIST)
@@ -254,9 +254,65 @@ def point_to_plane_icp(reading_points: torch.Tensor,
             break
 
     wsum = torch.clamp(w.sum(), min=1.0)
-    return ICPResult(T=T, n_iterations=it,
-                     inlier_rms=torch.sqrt((w * r * r).sum() / wsum),
+    inlier_rms = torch.sqrt((w * r * r).sum() / wsum)
+    if inv_q is not None:
+        # per-point outputs back to the caller's reading order
+        dist2, w = dist2[inv_q], w[inv_q]
+    return ICPResult(T=T, n_iterations=it, inlier_rms=inlier_rms,
                      match_dist2=dist2, inlier_mask=w > 0, hessian=A)
+
+
+def _full_matcher(ref_points, ref_normals, ref_mask):
+    """K1 (or its twin) over the whole reference: (p, mask) ->
+    (dist2, payload)."""
+    ref_points = ref_points.contiguous()
+    ref_mask = ref_mask.contiguous()
+    payload = payload_rows(ref_points, ref_normals)
+
+    def match(p, mask):
+        return nn_payload_kernel(p, mask, ref_points, ref_mask, payload)
+
+    return match
+
+
+def banded_band(M: int, N: int, nn_band: int = 0) -> int:
+    """The banded matcher's window in reference blocks of 1024: `nn_band`,
+    or when it is 0 the auto band max(8, 4 round(N / 2M)) — the expected
+    query-tile bracket of ~N / 2M blocks with 4x margin for Morton-order
+    discontinuities — clipped to the reference's N / 1024 blocks."""
+    band = nn_band if nn_band > 0 else max(8, 4 * max(1, round(N / (2 * M))))
+    return min(band, N // 1024)
+
+
+def _banded_matcher(config, reading_points, reading_mask, ref_points,
+                    ref_normals, ref_mask, init_T):
+    """The Morton-banded matcher (JAX icp.py:297-372): the reference sorted
+    once with its payload; the reading sorted once by its codes under
+    `init_T` and solved in that order (every loop reduction is
+    order-free); each iteration re-brackets the windows from the live
+    codes. Returns (match, work_points, work_mask, inv_q) with inv_q the
+    permutation back to the caller's order."""
+    M, N = reading_points.shape[0], ref_points.shape[0]
+    band = banded_band(M, N, config.nn_band)
+    origin = torch.where(ref_mask[:, None], ref_points, 1e30).amin(0)
+    cell = config.nn_cell_size
+    rs, rpen, rcodes_s, pay_s = banded_prepare_payload(
+        ref_points, ref_mask, ref_normals, origin, cell)
+    p0 = se3.transform_points(init_T.to(torch.float32), reading_points)
+    qperm = torch.sort(morton_codes(p0, reading_mask, origin, cell),
+                       stable=True).indices
+    inv_q = torch.argsort(qperm)
+
+    def match(p, mask):
+        codes = morton_codes(p, mask, origin, cell)
+        starts = banded_window_starts(codes, rcodes_s, N // 1024, band, 512,
+                                      1024)
+        dist2, pout = nn_payload_banded_stream_kernel(
+            p.contiguous(), rs, rpen, pay_s, starts, band)
+        return torch.where(mask, dist2, _BIG), pout
+
+    return (match, reading_points[qperm].contiguous(),
+            reading_mask[qperm].contiguous(), inv_q)
 
 
 def degeneracy_predictions(hessian: torch.Tensor):

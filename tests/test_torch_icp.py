@@ -91,20 +91,72 @@ def test_icp_matches_jax_on_planar_scans(scan):
 
 
 def test_solver_plan_and_unported_branches():
+    """Every operating point's matcher, pinned: K1 (or its twin) below
+    32,768 references; the banded matcher (K5 at any number of reference
+    blocks) by shape on CPU and CUDA alike."""
     cfg = icp.ICPConfig(coarse_iterations=6, coarse_decimation=8)
-    assert icp.solver_plan(cfg, 8192, 8192, "cuda") == {"nn": "kernel",
-                                                        "coarse": True}
-    assert icp.solver_plan(cfg, 8192, 8192, "cpu") == {"nn": "plain",
-                                                       "coarse": True}
+    assert icp.solver_plan(cfg, 8192, 8192, "cuda") == {
+        "nn": "kernel", "coarse": True}
+    assert icp.solver_plan(cfg, 8192, 8192, "cpu") == {
+        "nn": "plain", "coarse": True}
     assert not icp.solver_plan(cfg, 1024, 8192, "cpu")["coarse"]
-    assert icp.solver_plan(cfg, 8192, 65536, "cuda")["nn"] == "banded"
-    assert icp.solver_plan(cfg, 8192, 65536, "cpu")["nn"] == "plain"
+    for dev, nn in (("cuda", "kernel"), ("cpu", "plain")):
+        assert icp.solver_plan(cfg, 8192, 31744, dev) == {
+            "nn": nn, "coarse": True}
+    for dev in ("cpu", "cuda"):
+        for N in (32768, 65536, 66560, 131072, 262144):
+            assert icp.solver_plan(cfg, 8192, N, dev) == {
+                "nn": "banded", "coarse": True}
+        # unaligned shapes keep the full matcher
+        assert icp.solver_plan(cfg, 8000, 65536, dev)["nn"] != "banded"
+    assert icp.solver_plan(icp.ICPConfig(nn_mode="banded"), 512, 2048,
+                           "cpu")["nn"] == "banded"
     pts = torch.zeros((512, 3))
     m = torch.ones(512, dtype=torch.bool)
-    for bad in (icp.ICPConfig(nn_mode="banded"), icp.ICPConfig(axis_name="x")):
-        with pytest.raises(NotImplementedError):
-            icp.point_to_plane_icp(pts, m, pts, pts, m, torch.eye(4), 0.5,
-                                   bad)
+    with pytest.raises(NotImplementedError):
+        icp.point_to_plane_icp(pts, m, pts, pts, m, torch.eye(4), 0.5,
+                               icp.ICPConfig(axis_name="x"))
+
+
+@pytest.fixture(scope="module")
+def map_scene():
+    """An 8,192-point reference with normals (a 16 m room centred on the
+    origin) and a 1,024-point second scan of it, moved by a small
+    transform: the banded ICP's shapes cut to CPU size."""
+    ref = room_cloud(n=9900, size=16.0, seed=31, noise=0.005)[:8192]
+    mask = np.ones(8192, bool)
+    mask[-100:] = False
+    normals, _, _ = estimate_normals(jnp.asarray(ref), jnp.asarray(mask),
+                                     k=12)
+    scan = room_cloud(n=1240, size=16.0, seed=32, noise=0.005)[:1024]
+    T = jse3.make_transform(jse3.so3_exp(jnp.float32([0.01, -0.01, 0.04])),
+                            jnp.float32([0.15, -0.1, 0.02]))
+    reading = np.asarray(jse3.transform_points(T, jnp.asarray(scan)))
+    rmask = np.ones(1024, bool)
+    rmask[::97] = False
+    return reading, rmask, ref, np.array(normals), mask
+
+
+@pytest.mark.parametrize("cfg", [
+    dict(nn_mode="banded", nn_band=0, nn_cell_size=2.0),
+    dict(nn_mode="banded", nn_band=4, nn_cell_size=2.0),
+    dict(nn_mode="banded", nn_band=0, nn_cell_size=2.0,
+         coarse_iterations=4, coarse_decimation=2),
+], ids=["auto_band", "band4", "coarse_to_fine"])
+def test_banded_icp_matches_jax(map_scene, cfg):
+    """The port's banded ICP (the plain twin of K5) against JAX's banded
+    ICP (its split kernels in interpret mode): the same T, and per-point
+    outputs back in the caller's order."""
+    res_t, res_j = _solve_both(*map_scene, 0.7, **cfg)
+    _assert_same_solution(res_t, res_j)
+    assert res_t.n_iterations >= 3
+    assert abs(float(res_t.T[0, 3]) + 0.15) < 0.03
+    dt, dj = res_t.match_dist2.numpy(), np.asarray(res_j.match_dist2)
+    valid = map_scene[1]
+    assert (dt[~valid] >= 3.39e38).all() and (dj[~valid] >= 3.39e38).all()
+    np.testing.assert_allclose(dt[valid], dj[valid], atol=2e-3)
+    assert (res_t.inlier_mask.numpy() == np.asarray(res_j.inlier_mask)
+            ).mean() >= 0.98
 
 
 def test_clamp_trim_ratio_and_degeneracy_predictions_match_jax():

@@ -60,7 +60,7 @@ def test_build_is_keyed_by_the_sources():
     h = _kernels.source_hash()
     assert h == _kernels.source_hash() and len(h) == 16
     assert {s.name for s in _kernels.sources()} >= {
-        "nn_payload.cu", "moments.cu", "common.cuh"}
+        "nn_payload.cu", "moments.cu", "banded_nn.cu", "common.cuh"}
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
 
 
@@ -115,3 +115,79 @@ def test_banded_moments_kernel_matches_plain(cuda):
     got = moments_for(*args)
     assert _kernels.launch_counts()["banded_moments"] == before + 1
     _assert_moments_agree(got, normals.sorted_radius_moments(*args))
+
+
+def _banded_scene(dev, M, N, seed=5):
+    """A Morton-sorted map of N points (the 20 m room ~59 m out, 2%
+    masked) with normals as payload, and M queries from a second scan of
+    it under a small motion, sorted as the ICP sorts its reading."""
+    ref = torch.as_tensor(_lidar_room(N, seed), device=dev)
+    rmask = torch.arange(N, device=dev) % 50 != 0
+    nrm = torch.nn.functional.normalize(
+        torch.randn((N, 3), device=dev, generator=torch.Generator(
+            device=dev).manual_seed(seed)), dim=1)
+    origin = ref[rmask].amin(0)
+    rs, rpen, rcodes, pay = banded_nn.banded_prepare_payload(
+        ref, rmask, nrm, origin, 2.0)
+    q = torch.as_tensor(_lidar_room(M, seed + 1), device=dev) + torch.tensor(
+        [0.05, -0.03, 0.01], device=dev)
+    qm = torch.ones(M, dtype=torch.bool, device=dev)
+    codes = banded_nn.morton_codes(q, qm, origin, 2.0)
+    codes, perm = torch.sort(codes, stable=True)
+    return q[perm].contiguous(), codes, rs, rpen, rcodes, pay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,band", [(8192, 65536, 16), (1024, 65536, 64),
+                                      (8192, 131072, 32),
+                                      (1024, 131072, 128)])
+def test_banded_nn_kernels_match_plain(cuda, M, N, band):
+    """K5 against the plain twin at the fine and coarse ICP phases' bands
+    against 64- and 128-block crops (the TPU's resident and streaming
+    shapes): the contract's >= 99.7% identical payload rows and |d2|
+    within 3e-3 m^2 (in fact bit-identical: every operation is rounded
+    alike), and the full-coverage band of the coarse phase."""
+    q, codes, rs, rpen, rcodes, pay = _banded_scene(cuda, M, N)
+    starts = banded_nn.banded_window_starts(codes, rcodes, N // 1024, band,
+                                            512, 1024)
+    args = (q, rs, rpen, pay, starts, band)
+    before = _kernels.launch_counts()["banded_nn_payload_stream"]
+    d5, p5 = banded_nn.nn_payload_banded_stream_kernel(*args)
+    dp, pp = banded_nn.nn_payload_banded(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["banded_nn_payload_stream"] == before + 1
+    assert (p5 == pp).all(1).float().mean().item() >= 0.997
+    assert (d5 - dp).abs().max().item() <= 3e-3
+    assert bool((d5 < 1.0).float().mean() > 0.99)       # real matches
+
+
+@pytest.mark.cuda
+def test_banded_nn_kernels_find_nothing_in_a_dead_window(cuda):
+    """A window holding only masked references: +BIG and a zero row."""
+    q, codes, rs, rpen, rcodes, pay = _banded_scene(cuda, 1024, 8192)
+    dead = torch.full_like(rpen, 3.4e38)
+    starts = torch.zeros(2, dtype=torch.int32, device=cuda)
+    d, p = banded_nn.nn_payload_banded_stream_kernel(q, rs, dead, pay,
+                                                     starts, 8)
+    torch.cuda.synchronize()
+    assert bool((d == 3.4e38).all()) and bool((p == 0).all())
+
+
+@pytest.mark.cuda
+def test_banded_moments_kernel_beyond_64_blocks(cuda):
+    """K2 serves the TPU's f32 banded moments too: the map normals'
+    262,144 points (256 blocks) through `radius_normals`."""
+    N = 262144
+    p = torch.as_tensor(_lidar_room(N, 6), device=cuda)
+    m = torch.arange(N, device=cuda) < N - 1000
+    before = _kernels.launch_counts()["banded_moments"]
+    got = normals._radius_moments_banded(p, m, 0.4)
+    assert _kernels.launch_counts()["banded_moments"] == before + 1
+    codes = banded_nn.morton_codes(p, m, p[m].amin(0), 2.0)
+    cs, perm = torch.sort(codes, stable=True)
+    want = torch.empty_like(got)
+    want[perm] = normals.sorted_radius_moments(
+        p[perm], cs != banded_nn.SENTINEL, cs, 0.4)
+    _assert_moments_agree(got, want)
+    n, _, _ = normals.radius_normals(p, m, 0.4)
+    assert bool(torch.isfinite(n).all())

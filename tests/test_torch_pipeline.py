@@ -22,7 +22,7 @@ from aicp_mapping_tpu.pipeline.sequence import \
 from aicp_mapping_tpu_torch import (AlignedCloud, App, Cloud,
                                     PipelineConfig, _kernels, convert,
                                     load_yaml_config)
-from aicp_mapping_tpu_torch.ops import knn
+from aicp_mapping_tpu_torch.ops import banded_nn, knn
 from aicp_mapping_tpu_torch.pipeline import fused
 from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
 from test_golden import TOLERANCES, _compare, _load_golden, _result_lines
@@ -130,6 +130,114 @@ def test_app_matches_golden(sequence):
         u, Cloud.from_numpy(p, capacity=cfg.raw_capacity), pose))
         for u, p, pose in sequence]
     _compare(_result_lines(frames), _load_golden()["frames"])
+
+
+def test_app_prior_map_matches_golden(sequence):
+    """tests/test_golden.py::_run_prior_map through the port's App: the
+    prior map prefiltered and stored, every frame registered against its
+    crop (normals from `radius_normals`) with the overlap pinned at 50; a
+    second App seeded halfway with `convert` carries on identically."""
+    world = np.concatenate([p for _, p, _ in sequence[:6]])
+    cfg = _golden_cfg(PipelineConfig, localize_against_prior_map=True,
+                      crop_map_around_base=20.0, map_capacity=16384)
+    app = App(cfg)
+    app.set_prior_map(Cloud.from_numpy(world, capacity=16384))
+    assert app.prior_map.capacity == 16384
+    frames = [app.process_cloud(_frame(cfg, p, pose))
+              for _, p, pose in sequence[:6]]
+    _compare(_result_lines(frames), _load_golden()["prior_map"],
+             "prior_map")
+    assert all(f.octree_overlap == 50.0 and f.reference_id == -1
+               for f in frames)
+
+    a, b = App(cfg), App(cfg)
+    a.set_prior_map(Cloud.from_numpy(world, capacity=16384))
+    for _, p, pose in sequence[:3]:
+        a.process_cloud(_frame(cfg, p, pose))
+    convert.app_state_from_numpy(b, **convert.app_state_to_numpy(a))
+    ra, rb = (x.process_cloud(_frame(cfg, *sequence[3][1:])) for x in (a, b))
+    np.testing.assert_array_equal(ra.corrected_pose, rb.corrected_pose)
+    assert (ra.reading_id, ra.reference_id) == (rb.reading_id,
+                                                rb.reference_id) == (3, -1)
+
+
+def test_app_go_back_matches_golden(sequence):
+    """tests/test_golden.py::_run_go_back: five mapping frames, then
+    go_back_to_map() makes the built map the prior map."""
+    cfg = _golden_cfg(PipelineConfig, crop_map_around_base=20.0,
+                      map_capacity=16384)
+    app = App(cfg)
+    frames = []
+    for i, (_, p, pose) in enumerate(sequence):
+        if i == 5:
+            assert len(app.aligned_map_np) == 2048   # the bootstrap cloud
+            app.go_back_to_map()
+            assert cfg.localize_against_prior_map
+        frames.append(app.process_cloud(_frame(cfg, p, pose)))
+    _compare(_result_lines(frames), _load_golden()["go_back"], "go_back")
+
+
+@pytest.mark.parametrize("mode", ["built_map", "loaded_map",
+                                  "merged_prior_map"])
+def test_built_and_loaded_map_modes_match_jax(sequence, mode):
+    """localize_against_built_map crops the accumulated reference clouds;
+    load_map_from_file registers the first frame against the prior map
+    (exempt from the accept gate, here set tight enough to reject the
+    later frames) and then follows the graph; merge_aligned_clouds_to_map
+    grows the prior map every reference_update_frequency clouds and
+    re-filters it every 30. Both Apps, frame by frame."""
+    from aicp_mapping_tpu.cloud import AlignedCloud as JAC
+    from aicp_mapping_tpu.cloud import Cloud as JCloud
+
+    items = sequence[:4]
+    kw = dict(crop_map_around_base=20.0, map_capacity=16384)
+    if mode == "built_map":
+        kw.update(localize_against_built_map=True,
+                  reference_update_frequency=2)
+    elif mode == "loaded_map":
+        kw.update(load_map_from_file=True, max_correction_magnitude=0.01)
+        items = sequence[1:4]
+    else:
+        kw.update(localize_against_prior_map=True,
+                  merge_aligned_clouds_to_map=True,
+                  reference_update_frequency=2)
+    jcfg = _golden_cfg(jconfig.PipelineConfig, **kw)
+    japp, app = JaxApp(jcfg), App(_golden_cfg(PipelineConfig, **kw))
+    if mode != "built_map":
+        world = np.concatenate([p for _, p, _ in sequence[:3]])
+        japp.set_prior_map(JCloud.from_numpy(world, capacity=16384))
+        app.set_prior_map(Cloud.from_numpy(world, capacity=16384))
+    want = [japp.process_cloud(JAC.create(0, JCloud.from_numpy(
+        p, capacity=jcfg.raw_capacity), pose)) for _, p, pose in items]
+    got = [app.process_cloud(_frame(app.cfg, p, pose))
+           for _, p, pose in items]
+    _compare(_result_lines(got), _result_lines(want), mode)
+    assert app.graph.current_reference_id == \
+        japp.graph.current_reference_id
+    np.testing.assert_allclose(app.aligned_map_np.shape,
+                               japp.aligned_map_np.shape)
+    if mode == "loaded_map":
+        assert got[0].reference_id == -1 and got[0].accepted
+        assert not all(g.accepted for g in got[1:])
+    if mode == "merged_prior_map":
+        n_map = int(app.prior_map.count())
+        assert n_map == int(japp.prior_map.count())
+        assert app.prior_map.capacity == 16384
+
+
+def test_set_initial_guess_matches_jax():
+    rng = np.random.default_rng(7)
+    pose = np.asarray(jfused.se3.se3_exp(jnp.asarray(
+        rng.normal(size=6).astype(np.float32))))
+    odom = np.asarray(jfused.se3.se3_exp(jnp.asarray(
+        rng.normal(size=6).astype(np.float32))))
+    japp, app = JaxApp(_golden_cfg(jconfig.PipelineConfig)), App(
+        _golden_cfg(PipelineConfig))
+    japp.set_initial_guess(pose, odom)
+    app.set_initial_guess(pose, odom)
+    np.testing.assert_allclose(app.total_correction, japp.total_correction,
+                               atol=1e-6)
+    np.testing.assert_allclose(app.total_correction @ odom, pose, atol=1e-5)
 
 
 def test_convert_round_trips(sequence):
@@ -271,6 +379,17 @@ def test_kernels_never_fall_back(monkeypatch, tmp_path):
     with pytest.raises(ValueError, match="contiguous"):
         knn.nn_payload_kernel(q.T.contiguous().T, m, q, m,
                               torch.zeros((8, 8)))
+    # the banded kernel K5 likewise
+    r = torch.zeros((1024, 3))
+    pen = torch.zeros(1024)
+    pay = torch.zeros((1024, 8))
+    starts = torch.zeros(1, dtype=torch.int32)
+    qb = torch.zeros((512, 3))
+    fn = banded_nn.nn_payload_banded_stream_kernel
+    fn(qb, r, pen, pay, starts, 1)
+    with pytest.raises(ValueError, match="no kernel"):
+        fn(*(t.to("meta") for t in (qb, r, pen, pay, starts)), 1)
+    assert sum(_kernels.launch_counts().values()) == 0
     monkeypatch.setattr(_kernels, "BUILD_ROOT", tmp_path)
     monkeypatch.setattr(_kernels, "_lib", None)
     monkeypatch.setattr(_kernels.shutil, "which", lambda name: None)
@@ -283,9 +402,9 @@ def test_kernels_never_fall_back(monkeypatch, tmp_path):
 
 
 def test_app_rejects_unported_modes():
-    for kw in (dict(localize_against_prior_map=True),
-               dict(failure_prediction_mode=True),
-               dict(async_finalize=True), dict(wire_voxel=0.08)):
+    for kw in (dict(failure_prediction_mode=True),
+               dict(async_finalize=True), dict(wire_voxel=0.08),
+               dict(quantized_upload=True), dict(debug_dir="dumps")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             App(PipelineConfig(**kw))
     with pytest.raises(NotImplementedError):
