@@ -4,11 +4,13 @@ A port of `aicp_mapping_tpu` (JAX on a TPU) to PyTorch on an NVIDIA H100.
 It mirrors the JAX package's module paths and public names; the JAX package
 is the reference every ported function is tested against. The per-frame
 AICP path (voxel downsample -> hough prefilter -> voxel-set overlap ->
-auto-tuned trimmed ICP -> gates) runs end to end through
-`App(config, device=...).process_cloud(...)`, and map-scale localization
-against a prior map through the App's map modes and
-`parallel.ShardedMapLocalizer`; the TPU kernels on those paths are
-hand-written CUDA C++ for sm_90a (see `_kernels`).
+auto-tuned trimmed ICP -> gates), with failure prediction (FOV overlap,
+alignability, the risk classifier and its gate) when asked, runs end to end
+through `App(config).process_cloud(...)`; map-scale localization against a
+prior map through the App's map modes and `parallel.ShardedMapLocalizer`;
+one scan pair through `python -m aicp_mapping_tpu_torch register`. The
+entry points run on the card unless given `device="cpu"`. The TPU kernels
+on those paths are hand-written CUDA C++ for sm_90a (see `_kernels`).
 
 This package imports torch and numpy only, never jax or the JAX package:
 the machines that run it have no JAX.

@@ -11,7 +11,8 @@ machines import the package without `nvcc` or a card.
 Every kernel wrapper (in `ops/knn.py`, `ops/normals.py` and
 `ops/banded_nn.py`) adds one to its launch count right after its kernel
 was launched, and nowhere else, so a run can show that the main path
-really went through the kernels.
+really went through the kernels. K1 has two wrappers and two counts:
+`nn_payload` (the ICP matcher) and `nn_argmin` (its index mode).
 """
 from __future__ import annotations
 
@@ -31,8 +32,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 
 # One count per kernel, keyed by the name chip_smoke.py reports.
-_launches = {"nn_payload": 0, "banded_moments": 0, "radius_moments": 0,
-             "banded_nn_payload_stream": 0}
+_launches = {"nn_payload": 0, "nn_argmin": 0, "banded_moments": 0,
+             "radius_moments": 0, "banded_nn_payload_stream": 0}
 _lib = None
 _lock = threading.Lock()
 
@@ -42,6 +43,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # q, qmask, m, r, rmask, n, payload, p, dist_out, payload_out, stream
     "aicp_nn_payload": (_P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P),
+    # q, qmask, m, r, rmask, n, dist_out, idx_out, stream
+    "aicp_nn_argmin": (_P, _P, _I, _P, _P, _I, _P, _P, _P),
     # ps, ms, n, starts, tile_m, tile_n, band, rad2, out, stream
     "aicp_banded_moments": (_P, _P, _I, _P, _I, _I, _I, _F, _P, _P),
     # ps, ms, n, rad2, out, stream

@@ -10,6 +10,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .classification.classifier import RiskClassifier, SVMModel
 from .cloud import AlignedCloud, Cloud
 from .parallel.localizer import ShardedMapLocalizer
 from .pipeline.app import App
@@ -96,7 +97,7 @@ def localizer_state_to_numpy(loc: ShardedMapLocalizer) -> dict:
 
 
 def localizer_from_state(state: dict, config: ICPConfig | None = None, *,
-                         device="cpu", **options) -> ShardedMapLocalizer:
+                         device="cuda", **options) -> ShardedMapLocalizer:
     """A localizer on `device` over the prepared map of
     `localizer_state_to_numpy`'s `state` — its points, mask and normals as
     they are, so no normals pass runs — seeded with its App state and
@@ -114,3 +115,21 @@ def localizer_from_state(state: dict, config: ICPConfig | None = None, *,
     app_state_from_numpy(loc.app, **state["app"])
     loc._frame_idx = int(state["frame_idx"])
     return loc
+
+
+def classifier_to_numpy(clf) -> dict:
+    """A risk classifier's model (`w`, `b`, `mean`, `std`) and `threshold`
+    as numpy: the JAX package's `RiskClassifier` or the port's."""
+    m = clf.model
+    return dict(**{k: np.array(getattr(m, k), np.float32)
+                   for k in ("w", "b", "mean", "std")},
+                threshold=float(clf.threshold))
+
+
+def classifier_from_numpy(w, b, mean, std, threshold=0.5) -> RiskClassifier:
+    """The port's `RiskClassifier` holding the given model (on the CPU; the
+    App moves it to its device)."""
+    clf = RiskClassifier(threshold=float(threshold))
+    clf.model = SVMModel(*(torch.as_tensor(np.asarray(a, np.float32))
+                           for a in (w, b, mean, std)))
+    return clf

@@ -15,6 +15,27 @@ def identity(dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.eye(4, dtype=dtype, device=device)
 
 
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True),
+                           min=_EPS)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (..., 4) as (w, x, y, z) -> rotation (..., 3, 3)."""
+    q = quat_normalize(q)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    r = torch.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], dim=-1)
+    return r.reshape(q.shape[:-1] + (3, 3))
+
+
+def from_quat_trans(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    return make_transform(quat_to_matrix(q), t)
+
+
 def make_transform(rotation: torch.Tensor,
                    translation: torch.Tensor) -> torch.Tensor:
     """(..., 3, 3) rotation + (..., 3) translation -> (..., 4, 4)."""

@@ -6,10 +6,13 @@ distances + argmin, the twins of `nn_argmin_xla` and `nn_payload_xla`).
 Squared distances are taken in difference form, |q - r|^2, exact to f32
 rounding: the JAX package's expansion |q|^2 - 2 q.r + |r|^2 is a
 matrix-unit formulation that carries ~1e-3 m^2 of rounding noise at 60 m
-lidar coordinates. `nn_payload_kernel` is the wrapper of kernel K1
-(`_kernels/csrc/nn_payload.cu`), the ICP matcher: on a CUDA tensor it
-launches the kernel, on a CPU tensor it runs the plain version. The top-k
-`knn` is not ported yet (ROADMAP Q1 #11).
+lidar coordinates. Kernel K1 (`_kernels/csrc/nn_payload.cu`) has two
+wrappers: `nn_payload_kernel`, the ICP matcher, and `nn_argmin_kernel`, the
+exact 1-NN distance and index. On a CUDA tensor a wrapper launches the
+kernel, on a CPU tensor it runs the plain version.
+
+`knn` is the exact top-k (normal estimation and region growing); the JAX
+package computes it in XLA, so it is plain PyTorch here on every device.
 """
 from __future__ import annotations
 
@@ -50,6 +53,46 @@ def nn_payload(queries, qmask, refs, rmask, payload, block: int = 512):
     return dist, torch.where(qmask[:, None], payload[idx], 0.0)
 
 
+def _check_nn(name: str, queries, qmask, refs, rmask, *payload) -> str:
+    """K1's argument checks: contiguous f32 (M, 3) / (N, 3) points (and an
+    (N, P) f32 payload), bool masks, N >= 1, one device; returns its type."""
+    M, N = queries.shape[0], refs.shape[0]
+    device_type = _kernels.check_tensors(name, queries, qmask, refs, rmask,
+                                         *payload)
+    if (queries.dtype != torch.float32 or refs.dtype != torch.float32
+            or any(t.dtype != torch.float32 for t in payload)
+            or qmask.dtype != torch.bool or rmask.dtype != torch.bool):
+        raise TypeError(f"{name}: f32 points/payload and bool masks")
+    if (queries.shape != (M, 3) or refs.shape != (N, 3)
+            or qmask.shape != (M,) or rmask.shape != (N,)
+            or any(t.ndim != 2 or t.shape[0] != N for t in payload)
+            or N < 1):
+        raise ValueError(f"{name}: bad shapes {queries.shape} {refs.shape} "
+                         f"{[tuple(t.shape) for t in payload]}")
+    return device_type
+
+
+def nn_argmin_kernel(queries: torch.Tensor, qmask: torch.Tensor,
+                     refs: torch.Tensor, rmask: torch.Tensor):
+    """Kernel K1 in index mode (replaces ops/knn.py:_nn_kernel): exact-f32
+    1-NN distance and int64 index for any M, N >= 1. Same contract as
+    `nn_argmin`. CPU tensors run `nn_argmin`; CUDA tensors launch the
+    kernel or raise — there is no fallback."""
+    if _check_nn("nn_argmin", queries, qmask, refs, rmask) == "cpu":
+        return nn_argmin(queries, qmask, refs, rmask)
+    M, N = queries.shape[0], refs.shape[0]
+    dist = torch.empty((M,), dtype=torch.float32, device=queries.device)
+    idx = torch.empty((M,), dtype=torch.int64, device=queries.device)
+    with torch.cuda.device(queries.device):
+        status = _kernels.library().aicp_nn_argmin(
+            queries.data_ptr(), qmask.data_ptr(), M, refs.data_ptr(),
+            rmask.data_ptr(), N, dist.data_ptr(), idx.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    _kernels.check_status(status, "nn_argmin")
+    _kernels.count_launch("nn_argmin")
+    return dist, idx
+
+
 def nn_payload_kernel(queries: torch.Tensor, qmask: torch.Tensor,
                       refs: torch.Tensor, rmask: torch.Tensor,
                       payload: torch.Tensor):
@@ -59,20 +102,9 @@ def nn_payload_kernel(queries: torch.Tensor, qmask: torch.Tensor,
     Takes contiguous f32 points/payload and bool masks on one device. CPU
     tensors run `nn_payload`; CUDA tensors launch the kernel or raise —
     there is no fallback."""
-    M, N, P = queries.shape[0], refs.shape[0], payload.shape[1]
-    device_type = _kernels.check_tensors("nn_payload", queries, qmask, refs,
-                                         rmask, payload)
-    if (queries.dtype != torch.float32 or refs.dtype != torch.float32
-            or payload.dtype != torch.float32 or qmask.dtype != torch.bool
-            or rmask.dtype != torch.bool):
-        raise TypeError("nn_payload: f32 points/payload and bool masks")
-    if (queries.shape != (M, 3) or refs.shape != (N, 3)
-            or qmask.shape != (M,) or rmask.shape != (N,)
-            or payload.shape != (N, P) or N < 1):
-        raise ValueError("nn_payload: bad shapes "
-                         f"{queries.shape} {refs.shape} {payload.shape}")
-    if device_type == "cpu":
+    if _check_nn("nn_payload", queries, qmask, refs, rmask, payload) == "cpu":
         return nn_payload(queries, qmask, refs, rmask, payload)
+    M, N, P = queries.shape[0], refs.shape[0], payload.shape[1]
     lib = _kernels.library()
     dist = torch.empty((M,), dtype=torch.float32, device=queries.device)
     pout = torch.empty((M, P), dtype=torch.float32, device=queries.device)
@@ -84,3 +116,33 @@ def nn_payload_kernel(queries: torch.Tensor, qmask: torch.Tensor,
     _kernels.check_status(status, "nn_payload")
     _kernels.count_launch("nn_payload")
     return dist, pout
+
+
+def _topk_keys(d: torch.Tensor) -> torch.Tensor:
+    """Unique int64 sort keys of non-negative f32 distance rows: the
+    distance's bits (monotone for non-negative floats) above the column
+    index. Ordering by key is ordering by distance with ties to the lower
+    index — what a stable sort gives, and what `jax.lax.top_k` gives —
+    and no two keys are equal, so `torch.topk`'s unspecified tie order
+    never comes into play."""
+    col = torch.arange(d.shape[1], device=d.device)
+    return (d.view(torch.int32).to(torch.int64) << 32) | col
+
+
+def knn(queries: torch.Tensor, qmask: torch.Tensor, refs: torch.Tensor,
+        rmask: torch.Tensor, k: int, block: int = 512, approx: bool = False):
+    """Exact k nearest neighbours: (dist2 (M, k), idx (M, k) int64), sorted
+    by distance, ties to the lower index. Invalid refs sit at +BIG;
+    invalid queries get dist BIG and index 0. `approx=True` (the TPU's
+    `approx_min_k`, ~0.95 recall) takes the exact path (ROADMAP Q3)."""
+    del approx
+    dists, idxs = [], []
+    for s in range(0, queries.shape[0], block):
+        d = torch.where(rmask[None, :], sq_dists(queries[s:s + block], refs),
+                        _BIG)
+        key = torch.topk(_topk_keys(d), k, dim=1, largest=False).values
+        i = key & 0xFFFFFFFF
+        idxs.append(i)
+        dists.append(torch.gather(d, 1, i))
+    dist = torch.where(qmask[:, None], torch.cat(dists), _BIG)
+    return dist, torch.where(qmask[:, None], torch.cat(idxs), 0)

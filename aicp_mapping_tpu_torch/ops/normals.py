@@ -14,10 +14,12 @@ each point's valid neighbours with |q - r|^2 <= r^2 (difference form, see
   bf16 split one up to 64 blocks and the f32 one above).
 - `radius_normals`: normals + curvature from radius moments, banded
   (`_radius_moments_banded`) or exhaustive by shape.
+- `estimate_normals` / `normals_from_neighbors`: normals + curvature from
+  the k nearest neighbours (`ops.knn.knn`), as the alignability filter and
+  the pair-registration CLI take them.
 
 A wrapper runs its plain version on a CPU tensor and launches its kernel
-on a CUDA tensor, or raises. kNN normals (`estimate_normals`) are not
-ported yet (ROADMAP Q1 #11).
+on a CUDA tensor, or raises.
 """
 from __future__ import annotations
 
@@ -28,7 +30,7 @@ import torch
 
 from .. import _kernels
 from .banded_nn import SENTINEL, banded_window_starts, morton_codes
-from .knn import sq_dists
+from .knn import knn, sq_dists
 
 _BIG = 3.4e38
 # Moments dispatch by shape (never by device): clouds of at least this many
@@ -221,23 +223,10 @@ def _eigh3x3_smallest(A: torch.Tensor):
     return eigvals, v
 
 
-def moments_to_normals(M: torch.Tensor, points: torch.Tensor,
-                       mask: torch.Tensor, viewpoint=None):
-    """(N, 10) moments -> (normals (N,3), curvature (N,), n_neighbors (N,)):
-    cov = E[xx^T] - mu mu^T, smallest eigenvector, normals flipped toward
-    `viewpoint` when given."""
-    cnt = torch.clamp(M[:, 9], min=1.0)
-    mean = M[:, 0:3] / cnt[:, None]
-    exx = M[:, 3:6] / cnt[:, None]
-    exy = M[:, 6:9] / cnt[:, None]
-    cxy = exy[:, 0] - mean[:, 0] * mean[:, 1]
-    cxz = exy[:, 1] - mean[:, 0] * mean[:, 2]
-    cyz = exy[:, 2] - mean[:, 1] * mean[:, 2]
-    cov = torch.stack([
-        torch.stack([exx[:, 0] - mean[:, 0] * mean[:, 0], cxy, cxz], dim=-1),
-        torch.stack([cxy, exx[:, 1] - mean[:, 1] * mean[:, 1], cyz], dim=-1),
-        torch.stack([cxz, cyz, exx[:, 2] - mean[:, 2] * mean[:, 2]], dim=-1),
-    ], dim=-2)
+def _normals_from_cov(cov, points, mask, viewpoint):
+    """(N, 3, 3) covariances -> (normals, curvature = l_min / sum(l),
+    eigvals ascending): the smallest eigenvector, flipped toward
+    `viewpoint` when given; masked rows get zeros."""
     eigvals, normal = _eigh3x3_smallest(cov)
     denom = torch.clamp(eigvals.sum(-1), min=1e-12)
     curvature = torch.clamp(eigvals[..., 0], min=0.0) / denom
@@ -246,4 +235,58 @@ def moments_to_normals(M: torch.Tensor, points: torch.Tensor,
         normal = torch.where(flip[:, None], -normal, normal)
     normal = torch.where(mask[:, None], normal, 0.0)
     curvature = torch.where(mask, curvature, 0.0)
+    return normal, curvature, eigvals
+
+
+def moments_to_normals(M: torch.Tensor, points: torch.Tensor,
+                       mask: torch.Tensor, viewpoint=None):
+    """(N, 10) moments -> (normals (N,3), curvature (N,), n_neighbors (N,)):
+    cov = E[xx^T] - mu mu^T, smallest eigenvector, normals flipped toward
+    `viewpoint` when given.
+
+    Each covariance entry E[ab] - mu_a mu_b is rounded once, as the JAX
+    package's jitted code computes it (XLA contracts it into one fused
+    multiply-add): mu_a mu_b is exact in float64 and so is the difference,
+    so rounding that to f32 is the fused result. For a point whose
+    neighbourhood is itself alone, the entries are then the rounding
+    errors of its squared coordinates, not 0, and its normal and curvature
+    follow that noise as JAX's do (ROADMAP Q3)."""
+    cnt = torch.clamp(M[:, 9], min=1.0)
+    mean = (M[:, 0:3] / cnt[:, None]).double()
+    exx = M[:, 3:6] / cnt[:, None]
+    exy = M[:, 6:9] / cnt[:, None]
+
+    def entry(e, a, b):
+        return (e.double() - mean[:, a] * mean[:, b]).float()
+
+    cxy, cxz, cyz = entry(exy[:, 0], 0, 1), entry(exy[:, 1], 0, 2), \
+        entry(exy[:, 2], 1, 2)
+    cov = torch.stack([
+        torch.stack([entry(exx[:, 0], 0, 0), cxy, cxz], dim=-1),
+        torch.stack([cxy, entry(exx[:, 1], 1, 1), cyz], dim=-1),
+        torch.stack([cxz, cyz, entry(exx[:, 2], 2, 2)], dim=-1),
+    ], dim=-2)
+    normal, curvature, _ = _normals_from_cov(cov, points, mask, viewpoint)
     return normal, curvature, M[:, 9]
+
+
+def estimate_normals(points: torch.Tensor, mask: torch.Tensor, k: int,
+                     viewpoint=None, approx: bool = False):
+    """Per-point normals + curvature from the k-NN neighbourhood (self
+    included): (normals (N, 3), curvature (N,), eigvals (N, 3) ascending),
+    oriented toward `viewpoint` when given."""
+    _, idx = knn(points, mask, points, mask, k, approx=approx)
+    return normals_from_neighbors(points, mask, idx, viewpoint)
+
+
+def normals_from_neighbors(points: torch.Tensor, mask: torch.Tensor,
+                           idx: torch.Tensor, viewpoint=None):
+    """Normals + curvature from a neighbour index (N, k): the covariance of
+    each point's valid neighbours through `_normals_from_cov`."""
+    nbrs = points[idx]                                   # (N, k, 3)
+    w = (mask[idx] & mask[:, None]).to(points.dtype)[..., None]
+    cnt = torch.clamp(w.sum(1), min=1.0)                 # (N, 1)
+    mean = (nbrs * w).sum(1) / cnt
+    centered = (nbrs - mean[:, None, :]) * w
+    cov = torch.einsum("nki,nkj->nij", centered, centered) / cnt[..., None]
+    return _normals_from_cov(cov, points, mask, viewpoint)

@@ -2,7 +2,8 @@
 `aicp_mapping_tpu.ops.quantile`.
 
 Used by the trimmed-distance outlier filter of ICP (keep the `ratio`
-fraction of matches with the smallest distance).
+fraction of matches with the smallest distance) and by the ICP quality
+monitor (`registration.monitor`).
 """
 from __future__ import annotations
 
@@ -61,3 +62,16 @@ def masked_quantile_hist(values: torch.Tensor, mask: torch.Tensor, q,
         hi = new_lo + width
         lo = torch.where(b > 0, new_lo, lo)
     return hi
+
+
+def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    w = mask.to(values.dtype)
+    return (values * w).sum() / torch.clamp(w.sum(), min=1.0)
+
+
+def masked_median(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return masked_quantile(values, mask, 0.5)
+
+
+def masked_max(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask, values, -_BIG).max()

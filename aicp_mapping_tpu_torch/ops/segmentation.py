@@ -1,9 +1,12 @@
-"""Planes-only prefilter, PyTorch port of the hough path of
-`aicp_mapping_tpu.ops.segmentation`.
+"""Plane segmentation, PyTorch port of `aicp_mapping_tpu.ops.segmentation`.
 
-Only `method="hough"` with an `out_capacity` is ported: the fused
-sorted-space prefilter (`_hough_prefilter_sorted`). Region growing and the
-uncompacted hough path wait for ROADMAP Q1 #11.
+- The planes-only prefilter: `plane_segmentation_filter` with
+  `method="hough"` and an `out_capacity`, i.e. the fused sorted-space
+  prefilter (`_hough_prefilter_sorted`). Its region-growing method and the
+  uncompacted hough path are not ported (ROADMAP Q1 #11).
+- Region growing as the alignability filter runs it:
+  `label_propagation_clusters` (min-label propagation over the kNN
+  smoothness graph), `filter_small_clusters` and `compact_labels`.
 
 The output order is the cluster-balanced round-robin order cut to
 `out_capacity`, so which points survive depends on every sort's tie-break:
@@ -14,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from .banded_nn import SENTINEL, morton_codes
+from .knn import knn
 from .normals import (banded_by_shape, moments_to_normals,
                       radius_moments_kernel, sorted_radius_moments_kernel)
 
@@ -141,3 +145,96 @@ def plane_segmentation_filter(points, mask, viewpoint=None, normal_k=30,
     return _hough_prefilter_sorted(points, mask, viewpoint, normal_radius,
                                    curvature_thresh, min_cluster_size,
                                    out_capacity)
+
+
+# Rounds run by `label_propagation_clusters` since the last reset: each
+# round reads one flag back to the host.
+_propagation = {"calls": 0, "rounds": 0}
+
+
+def propagation_rounds() -> dict:
+    return dict(_propagation)
+
+
+def reset_propagation_rounds() -> None:
+    _propagation.update(calls=0, rounds=0)
+
+
+def label_propagation_clusters(points, mask, normals, curvature, k: int = 15,
+                               smoothness_deg: float = 3.0,
+                               curvature_thresh: float = 1.0,
+                               max_iters: int = 64, neighbor_idx=None,
+                               jumps_per_iter: int = 6) -> torch.Tensor:
+    """Min-label propagation over the smoothness graph: labels (N,) int64,
+    the minimum point index of each cluster, -1 for invalid points.
+
+    Two points share a label iff a chain of kNN pairs with normals within
+    `smoothness_deg` joins them; points over `curvature_thresh` may join
+    but do not forward labels. Each round is one neighbour pull and
+    `jumps_per_iter` pointer jumps L <- L[L], as in the JAX while_loop; the
+    loop here reads `changed` once per round and stops when nothing changed
+    or after `max_iters` rounds, so it returns the while_loop's labels.
+    `neighbor_idx` (N, >= k) reuses a kNN build (its first k columns)."""
+    n = points.shape[0]
+    if neighbor_idx is None:
+        _, idx = knn(points, mask, points, mask, k)
+    else:
+        idx = neighbor_idx[:, :k]
+    # in f32, as JAX computes it
+    cos_thresh = torch.cos(torch.deg2rad(torch.tensor(
+        smoothness_deg, dtype=torch.float32))).item()
+    dots = torch.einsum("nd,nkd->nk", normals, normals[idx]).abs()
+    nbr_ok = (dots >= cos_thresh) & mask[:, None] & mask[idx]
+    can_forward = (curvature <= curvature_thresh) & mask
+    pull_ok = nbr_ok & can_forward[idx]
+    labels = torch.where(mask, torch.arange(n, device=points.device), n)
+    _propagation["calls"] += 1
+    for _ in range(max_iters):
+        pulled = torch.where(pull_ok, labels[idx], n).amin(1)
+        new = torch.minimum(labels, pulled)
+        for _ in range(jumps_per_iter):
+            jumped = new[torch.clamp(new, 0, n - 1)]
+            new = torch.where(new < n, torch.minimum(new, jumped), n)
+        new = torch.where(mask, new, n)
+        changed = bool((new != labels).any())
+        labels = new
+        _propagation["rounds"] += 1
+        if not changed:
+            break
+    return torch.where(mask, labels, -1)
+
+
+def _segment_sizes(labels, mask, n: int) -> torch.Tensor:
+    """(n + 1,) count of valid points per root id; id n collects the rest."""
+    seg = torch.where(labels >= 0, labels, n)
+    return torch.zeros(n + 1, dtype=torch.int64, device=labels.device
+                       ).index_add_(0, seg, mask.to(torch.int64))
+
+
+def filter_small_clusters(labels, mask, min_cluster_size: int = 50,
+                          k: int = 0) -> torch.Tensor:
+    """Mask out points whose cluster has fewer than `min_cluster_size`
+    valid points."""
+    n = labels.shape[0]
+    sizes = _segment_sizes(labels, mask, n)
+    keep = sizes[torch.clamp(labels, 0, n)] >= min_cluster_size
+    return mask & keep & (labels >= 0)
+
+
+def compact_labels(labels, mask, max_clusters: int):
+    """Rank clusters by size and relabel them [0, max_clusters); the rest
+    -> -1. Equal sizes rank by lower root id (`jax.lax.top_k`'s order; a
+    stable descending sort here). Returns (labels (N,), cluster_valid (C,),
+    cluster_sizes (C,))."""
+    n = labels.shape[0]
+    valid_pt = (labels >= 0) & mask
+    sizes = _segment_sizes(torch.where(valid_pt, labels, -1), mask, n)[:n]
+    top_sizes, top_roots = torch.sort(sizes, descending=True, stable=True)
+    top_sizes, top_roots = top_sizes[:max_clusters], top_roots[:max_clusters]
+    cluster_valid = top_sizes > 0
+    rank_of_root = torch.full((n + 1,), -1, dtype=torch.int64,
+                              device=labels.device)
+    rank_of_root[torch.where(cluster_valid, top_roots, n)] = torch.where(
+        cluster_valid, torch.arange(max_clusters, device=labels.device), -1)
+    comp = rank_of_root[torch.clamp(labels, 0, n)]
+    return torch.where(valid_pt, comp, -1), cluster_valid, top_sizes

@@ -21,7 +21,7 @@ import torch
 from ..cloud import AlignedCloud, Cloud
 from ..ops.normals import radius_normals
 from ..ops.voxel import crop_box
-from ..pipeline.app import App
+from ..pipeline.app import App, check_device
 from ..pipeline.config import PipelineConfig
 from ..registration.icp import ICPConfig
 
@@ -72,7 +72,7 @@ class ShardedMapLocalizer:
     debug working mode, trim floor and ceiling pinned to `trim_ratio`)."""
 
     def __init__(self, map_points: np.ndarray,
-                 config: Optional[ICPConfig] = None, *, device="cpu",
+                 config: Optional[ICPConfig] = None, *, device="cuda",
                  normal_radius: float = 0.4, trim_ratio: float = 0.7,
                  max_correction_magnitude: float = 0.0,
                  block_cell: float = 1.0,
@@ -92,12 +92,12 @@ class ShardedMapLocalizer:
         normals, _, _ = radius_normals(points, mask, normal_radius)
         self._set_map(points, mask, normals)
 
-    def _setup(self, config: Optional[ICPConfig] = None, device="cpu", *,
+    def _setup(self, config: Optional[ICPConfig] = None, device="cuda", *,
                trim_ratio: float = 0.7, max_correction_magnitude: float = 0.0,
                pipeline_config: Optional[PipelineConfig] = None,
                crop_radius: float = 16.0, out_capacity: int = 8192) -> None:
         """Everything but the map: the App in prior-map mode and the crop."""
-        self.device = torch.device(device)
+        self.device = check_device(device, "ShardedMapLocalizer")
         self.cfg = config or ICPConfig()
         self.out_capacity = int(out_capacity)
         self.crop_radius = float(crop_radius)

@@ -3,20 +3,23 @@
 
 Host Python makes the per-frame decisions (bootstrap, reference policy,
 gates' bookkeeping); the frame step (`pipeline.fused.make_app_frame_step`)
-runs on `App(config, device=...)`'s device, and each frame reads its
-scalars back to the host once.
+runs on `App(config, device=...)`'s device — the card unless the caller
+asks for the CPU — and each frame reads its scalars back to the host once.
 
 Ported: bootstrap on the first cloud, the graph-reference policy (windowed
-update every `reference_update_frequency` clouds), the `min_overlap_percent`
-gate with its forced reference update, the accept gate with the
-first-registration exemption, robot and debug working modes, total-correction
-chaining, the synchronous `process_cloud`, and the map modes: a prior map
-(`set_prior_map`, or an external `reference_provider` such as
-`parallel.ShardedMapLocalizer`) with the overlap pinned at 50, the built map
-and `go_back_to_map`, `load_map_from_file`'s first-frame reference, and
-`merge_aligned_clouds_to_map`. The risk classifier, pipelined submission,
-the wire formats and `debug_dir` dumps raise until their ROADMAP items land;
-there is no visualizer.
+update every `reference_update_frequency` clouds), failure prediction
+(`failure_prediction_mode`: FOV overlap, alignability and the risk
+classifier, given as `classifier=` or loaded from `classifier_path` at
+`risk_threshold`) whose risk gate, like the `min_overlap_percent` gate,
+discards the correction and forces a reference update, the accept gate with
+the first-registration exemption, robot and debug working modes,
+total-correction chaining, the synchronous `process_cloud`, and the map
+modes: a prior map (`set_prior_map`, or an external `reference_provider`
+such as `parallel.ShardedMapLocalizer`) with the overlap pinned at 50, the
+built map and `go_back_to_map`, `load_map_from_file`'s first-frame
+reference, and `merge_aligned_clouds_to_map`. Pipelined submission, the wire
+formats and `debug_dir` dumps raise until their ROADMAP items land; there is
+no visualizer.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..classification.classifier import RiskClassifier
 from ..cloud import AlignedCloud, AlignedCloudsGraph, Cloud
 from ..ops.normals import radius_normals
 from ..ops.voxel import crop_box
@@ -55,8 +59,6 @@ class FrameResult:
 
 def _unsupported(cfg: PipelineConfig) -> list:
     checks = (
-        (cfg.failure_prediction_mode or bool(cfg.classifier_path),
-         "failure prediction / risk classifier (ROADMAP Q1 #9)"),
         (cfg.async_finalize, "async finalize (ROADMAP Q1 #8)"),
         (cfg.quantized_upload or cfg.wire_voxel > 0.0,
          "wire formats: quantized_upload / wire_voxel (ROADMAP Q1 #8)"),
@@ -65,16 +67,24 @@ def _unsupported(cfg: PipelineConfig) -> list:
     return [what for bad, what in checks if bad]
 
 
+def check_device(device, who: str) -> torch.device:
+    """`device` as a torch.device; a CUDA device without a card raises (an
+    entry point never falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}(device={str(device)!r}): CUDA is not "
+                           "available; pass device='cpu' to run on the CPU")
+    return dev
+
+
 class App:
-    def __init__(self, config: PipelineConfig, device="cpu",
-                 reference_provider=None):
+    def __init__(self, config: PipelineConfig, device="cuda",
+                 reference_provider=None,
+                 classifier: Optional[RiskClassifier] = None):
         missing = _unsupported(config)
         if missing:
             raise NotImplementedError("not ported yet: " + "; ".join(missing))
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"App(device={device!r}): CUDA is not "
-                               "available")
+        self.device = check_device(device, "App")
         self.cfg = config
         # Optional external reference for prior-map localization: any
         # object with provide_reference(pose_est) -> (points, mask, normals)
@@ -97,7 +107,17 @@ class App:
         self._map_parts: list[np.ndarray] = []
         self._map_pending: list[Cloud] = []
         self._map_np: Optional[np.ndarray] = None
-        self._app_step = make_app_frame_step(config)
+        self.classifier = classifier
+        if classifier is None and config.classifier_path:
+            self.classifier = RiskClassifier(threshold=config.risk_threshold)
+            self.classifier.load(config.classifier_path)
+        has_clf = (self.classifier is not None
+                   and self.classifier.model is not None)
+        self._app_step = make_app_frame_step(
+            config, with_risk=config.failure_prediction_mode,
+            with_classifier=has_clf)
+        self._clf_params = (tuple(dataclasses.astuple(
+            self.classifier.model.to(self.device))) if has_clf else ())
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -233,7 +253,7 @@ class App:
         out = self._app_step(points, mask, self._tensor(odom_pose),
                              self._tensor(self.total_correction), ref_pts,
                              ref_normals, ref_mask, self._tensor(ref_pose),
-                             fixed_overlap, allow_large)
+                             fixed_overlap, allow_large, *self._clf_params)
 
         # Reference update in graph mode: adopt this frame's aligned outputs
         # (rolled back below if the frame is rejected) — the loaded map's
@@ -307,7 +327,8 @@ class App:
                 if since % cfg.reference_update_frequency == 0:
                     self.graph.update_reference(self.graph.n_clouds - 1)
         else:
-            # gated: trust the prior for one step, force a reference update
+            # risk or overlap gated: trust the prior for one step, force a
+            # reference update
             cloud.update(Cloud(out.filtered_points, out.filtered_mask),
                          is_reference=True,
                          its_reference_id=self.graph.current_reference_id)

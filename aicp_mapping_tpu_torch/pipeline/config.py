@@ -86,6 +86,30 @@ def _parse_icp_dict(icp: dict, base: ICPConfig) -> ICPConfig:
     )
 
 
+def load_icp_chain_yaml(path: str, base: ICPConfig | None = None):
+    """Parse one named ICP-chain YAML (configs/icp/*.yaml) into
+    (ICPConfig, reading ChainFilterConfig, reference ChainFilterConfig)."""
+    import yaml
+
+    from ..registration.chain import ChainFilterConfig
+
+    path = os.path.expandvars(os.path.expanduser(path))
+    with open(path) as f:
+        doc = yaml.safe_load(f) or {}
+    icp = doc.get("AICP", doc).get("ICP", {}) or {}
+
+    def filters(d: dict) -> ChainFilterConfig:
+        return ChainFilterConfig(
+            min_dist=float(d.get("minDist", 0.0)),
+            max_dist=float(d.get("maxDist", 0.0)),
+            random_sampling_prob=float(d.get("randomSamplingProb", 1.0)),
+            max_density_cell=float(d.get("maxDensityCell", 0.0)))
+
+    return (_parse_icp_dict(icp, base or ICPConfig()),
+            filters(icp.get("readingFilters", {}) or {}),
+            filters(icp.get("referenceFilters", {}) or {}))
+
+
 _PIPELINE_KEYS = (
     ("workingMode", "working_mode"),
     ("failurePredictionMode", "failure_prediction_mode"),

@@ -1,10 +1,10 @@
 """The AICP frame step, PyTorch port of `aicp_mapping_tpu.pipeline.fused`.
 
 Plain functions (PyTorch runs eagerly; there is nothing to jit): voxel
-downsample -> hough prefilter -> voxel-set overlap -> auto-tuned trim ratio
--> trimmed point-to-plane ICP -> gates -> total-correction chaining, on the
-device of the inputs. Only `with_risk=False` is ported; the risk stage
-(FOV overlap, alignability, classifier) is ROADMAP Q1 #9.
+downsample -> hough prefilter -> voxel-set overlap -> [FOV overlap ->
+alignability -> risk classifier] -> auto-tuned trim ratio -> trimmed
+point-to-plane ICP -> gates -> total-correction chaining, on the device of
+the inputs.
 """
 from __future__ import annotations
 
@@ -12,7 +12,10 @@ import dataclasses
 
 import torch
 
+from ..classification.classifier import SVMModel
 from ..geometry import se3
+from ..overlap.alignability import alignability_filter
+from ..overlap.fov import fov_overlap
 from ..ops.segmentation import plane_segmentation_filter
 from ..ops.voxel import voxel_downsample, voxel_set_overlap
 from ..registration.icp import clamp_trim_ratio, point_to_plane_icp
@@ -112,29 +115,52 @@ def make_frame_step(cfg: PipelineConfig):
     return frame_step
 
 
+def risk_stage(cfg: PipelineConfig, ref_points, ref_mask, ref_pose, fpts,
+               fmask, read_pose, overlap, model: SVMModel | None = None):
+    """The alignment-risk stage of a frame: FOV overlap of the reference
+    (at `ref_pose`) and the filtered reading (at `read_pose`), the
+    alignability of their in-FOV subsets, and the classifier's P(failure)
+    on (overlap, alignability) — -1 without a model. Returns (fov,
+    alignability, risk, risk_ok = risk <= risk_threshold), 0-d tensors."""
+    fov, a_in_b, b_in_a = fov_overlap(
+        ref_points, ref_mask, ref_pose, fpts, fmask, read_pose,
+        cfg.sensor_range, cfg.sensor_angular_view)
+    align, _ = alignability_filter(
+        ref_points, a_in_b, ref_pose, fpts, b_in_a, read_pose,
+        voxel_size=cfg.voxel_size, ds_capacity=cfg.align_ds_capacity,
+        max_clusters=cfg.align_max_clusters)
+    risk = torch.full_like(fov, -1.0)
+    if model is not None:
+        risk = model.predict_probability(torch.stack([overlap, align]))
+    return fov, align, risk, risk <= float(cfg.risk_threshold)
+
+
 def make_app_frame_step(cfg: PipelineConfig, with_risk: bool = False,
                         with_classifier: bool = False):
     """The App's per-frame block:
 
       (raw_points, raw_mask, odom_pose, prev_total, ref_points, ref_normals,
-       ref_mask, ref_pose, fixed_overlap, allow_large) -> AppFrameOutput
+       ref_mask, ref_pose, fixed_overlap, allow_large[, clf_w, clf_b,
+       clf_mean, clf_std]) -> AppFrameOutput
 
     Poses and `prev_total` are (4, 4) tensors on the points' device;
     `fixed_overlap` (float, >= 0 overrides the computed overlap) and
     `allow_large` (bool, exempts the frame from the accept gate) are host
     values. In debug working mode `prev_total` is applied to the reading
-    first. The gates and the total-correction chaining run on the device.
+    first. With `with_risk` the FOV overlap and the alignability of the
+    reference and the filtered reading (at `ref_pose` and the reading's
+    pose) feed the classifier (`clf_*`, the `SVMModel` tensors, with
+    `with_classifier`), and a risk over `risk_threshold` gates the frame
+    like the overlap gate. The gates and the total-correction chaining run
+    on the device.
     """
-    if with_risk or with_classifier:
-        raise NotImplementedError(
-            "make_app_frame_step(with_risk=True): the risk stage (FOV "
-            "overlap, alignability, classifier) is ROADMAP Q1 #9")
     debug_mode = cfg.working_mode != "robot"
     max_corr = float(cfg.max_correction_magnitude)
 
     def app_step(raw_points, raw_mask, odom_pose, prev_total, ref_points,
                  ref_normals, ref_mask, ref_pose, fixed_overlap,
-                 allow_large):
+                 allow_large, clf_w=None, clf_b=None, clf_mean=None,
+                 clf_std=None):
         dev = raw_points.device
         if debug_mode:
             read_pose = prev_total @ odom_pose
@@ -153,18 +179,26 @@ def make_app_frame_step(cfg: PipelineConfig, with_risk: bool = False,
                                        fmask)
         minus1 = torch.full((), -1.0, dtype=torch.float32, device=dev)
 
+        risk_ok = torch.ones((), dtype=torch.bool, device=dev)
+        fov = align = risk = minus1
+        if with_risk:
+            model = (SVMModel(clf_w, clf_b, clf_mean, clf_std)
+                     if with_classifier else None)
+            fov, align, risk, risk_ok = risk_stage(
+                cfg, ref_points, ref_mask, ref_pose, fpts, fmask, read_pose,
+                overlap, model)
+
         ratio = clamp_trim_ratio(overlap, cfg.trim_ratio_floor,
                                  cfg.trim_ratio_ceil)
         eye4 = se3.identity(device=dev)
         res = point_to_plane_icp(fpts, fmask, ref_points, ref_normals,
                                  ref_mask, eye4, ratio, cfg.icp)
 
-        # Gates. Overlap gate (same skip semantics as a high risk), then
-        # the accept gate: any axis of the correction translation over the
-        # magnitude cap drops the frame.
-        risk_ok = torch.ones((), dtype=torch.bool, device=dev)
+        # Gates. Risk gate and overlap gate (both discard the correction
+        # and force a reference update), then the accept gate: any axis of
+        # the correction translation over the magnitude cap drops the frame.
         if cfg.min_overlap_percent > 0.0:
-            risk_ok = overlap >= cfg.min_overlap_percent
+            risk_ok = risk_ok & (overlap >= cfg.min_overlap_percent)
         corr_g = torch.where(risk_ok, res.T, eye4)
         accepted = (torch.abs(corr_g[:3, 3]) <= max_corr).all()
         if allow_large:
@@ -174,8 +208,8 @@ def make_app_frame_step(cfg: PipelineConfig, with_risk: bool = False,
         return AppFrameOutput(
             correction=corr_f, correction_raw=res.T, risk_ok=risk_ok,
             accepted=accepted, new_total=corr_f @ prev_total,
-            overlap_percent=overlap, fov_overlap=minus1,
-            alignability=minus1, risk=minus1, trim_ratio=ratio,
+            overlap_percent=overlap, fov_overlap=fov,
+            alignability=align, risk=risk, trim_ratio=ratio,
             n_iterations=res.n_iterations, inlier_rms=res.inlier_rms,
             hessian=res.hessian, filtered_points=fpts, filtered_mask=fmask,
             filtered_normals=fnormals, filtered_count=fmask.sum(),

@@ -1,0 +1,180 @@
+"""Profile the App's frame at the bench operating point on one NVIDIA GPU,
+without and with failure prediction.
+
+    python3 -m aicp_mapping_tpu_torch.tools.profile_frame [--frames 8]
+
+The cell is `chip_smoke.py`'s bench slice: 60,000-point scans of the bench
+sequence (`profile_localize.SCAN_ARGS`), 65,536 raw / 16,384 voxels /
+8,192 filtered points, coarse-to-fine ICP; with `failure_prediction_mode`
+and the shipped classifier `data/classification/risk_classifier.npz` in
+the second row. For each row one App processes the bootstrap and 2
+warm-up frames, then
+
+1. `--frames` synchronous `process_cloud` calls, timed by the host clock;
+2. as many again with each stage synchronised and timed on its own: the
+   prefilter (voxel + hough), the risk stage (FOV overlap, alignability,
+   classifier) and ICP; with the label-propagation rounds per frame (each a
+   host read) and the port's kernel launches per frame;
+3. `--frames` calls under `torch.profiler`: device time per frame (CUDA
+   kernels, copies and fills), the kernels that take most of it, and all
+   device kernel launches per frame. The busy share is that device time
+   over the mean wall time of step 1.
+
+Prints one JSON object per row and writes them to `--out`. Exits non-zero
+without a result when CUDA is unavailable.
+"""
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+from .profile_localize import SCAN_ARGS, _device_events, bench_config
+
+WARMUP = 2
+CLASSIFIER = os.path.join(os.path.dirname(__file__), "..", "..", "data",
+                          "classification", "risk_classifier.npz")
+
+
+def _staged(torch, stage_ms):
+    """Synchronise and time the frame step's prefilter, risk stage and ICP
+    (module globals it looks up at each call); returns the undo."""
+    from ..pipeline import fused
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            stage_ms[name] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    names = ("_prefilter", "risk_stage", "point_to_plane_icp")
+    saved = {n: getattr(fused, n) for n in names}
+    for n in names:
+        setattr(fused, n, timed(n, saved[n]))
+
+    def undo():
+        for n in names:
+            setattr(fused, n, saved[n])
+    return undo
+
+
+def profile_row(torch, items, frames: int, risk: bool) -> dict:
+    from .. import _kernels
+    from ..cloud import AlignedCloud, Cloud
+    from ..ops import segmentation
+    from ..pipeline.app import App
+
+    cfg = bench_config()
+    if risk:
+        cfg.failure_prediction_mode = True
+        cfg.classifier_path = CLASSIFIER
+    app = App(cfg, device="cuda")
+    frames_left = iter(items)
+
+    def step():
+        utime, pts, pose = next(frames_left)
+        app.process_cloud(AlignedCloud.create(utime, Cloud.from_numpy(
+            pts, capacity=cfg.raw_capacity), pose))
+
+    for _ in range(1 + WARMUP):
+        step()
+    wall = []
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    stage_ms = collections.defaultdict(float)
+    undo = _staged(torch, stage_ms)
+    segmentation.reset_propagation_rounds()
+    _kernels.reset_launch_counts()
+    try:
+        for _ in range(frames):
+            step()
+    finally:
+        undo()
+    rounds = segmentation.propagation_rounds()
+    port_launches = _kernels.launch_counts()
+
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            step()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        events = _device_events(path)
+    if not events:
+        raise RuntimeError("the profiler recorded no device events")
+    by_name = collections.defaultdict(float)
+    for _, name, us in events:
+        by_name[name] += us
+    device_ms = sum(by_name.values()) / 1e3 / frames
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(
+        failure_prediction=risk, frames=frames, frame_ms=wall,
+        frame_ms_mean=float(np.mean(wall)),
+        stage_ms_per_frame={k: v / frames for k, v in stage_ms.items()},
+        propagation_rounds_per_frame=rounds["rounds"] / frames,
+        port_kernel_launches_per_frame={k: v / frames for k, v in
+                                        port_launches.items() if v},
+        registered=sum(1 for r in app.frames[-3 * frames:] if r.registered),
+        device_ms_per_frame=device_ms,
+        busy_share=device_ms / float(np.mean(wall)),
+        kernel_launches_per_frame=sum(
+            1 for cat, _, _ in events if cat == "kernel") / frames,
+        top_device_ms_per_frame={name[:80]: us / 1e3 / frames
+                                 for name, us in top})
+
+
+def main(argv=None) -> int:
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--out", default="chiprun_out/profile_frame.json")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile_frame: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    gpu = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    from .. import _kernels
+    from ..pipeline.sequence import synthetic_sequence
+
+    torch.zeros(1, device="cuda")
+    _kernels.library()
+    items, _ = synthetic_sequence(n_frames=1 + WARMUP + 3 * args.frames,
+                                  **SCAN_ARGS)
+    rows = []
+    for risk in (False, True):
+        row = dict(device=gpu, **profile_row(torch, items, args.frames,
+                                             risk))
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(rows, f, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,6 @@
-"""Synthetic point-cloud generators (numpy only): a copy of the room
-generator of `aicp_mapping_tpu.tools.synthetic`, so the port's scripts make
-the same scenes from the same seed on a machine without JAX.
+"""Synthetic point-cloud generators (numpy only): copies of the room and
+corridor generators of `aicp_mapping_tpu.tools.synthetic`, so the port's
+scripts make the same scenes from the same seed on a machine without JAX.
 """
 from __future__ import annotations
 
@@ -28,6 +28,27 @@ def room_cloud(n: int = 8000, size: float = 10.0, seed: int = 0,
     s2 = 1.0 / np.sqrt(2.0)
     parts.append(plane([0, -h, 0], [0, 1, 0], [s2, 0, s2], size, 3.0))   # ramp
     cloud = np.concatenate(parts).astype(np.float32)
+    if noise > 0:
+        cloud = cloud + rng.normal(0, noise, cloud.shape).astype(np.float32)
+    return cloud
+
+
+def corridor_cloud(n: int = 6000, length: float = 20.0, width: float = 3.0,
+                   seed: int = 0, noise: float = 0.0) -> np.ndarray:
+    """Degenerate along x: two parallel walls (y = +/- w/2) and a floor."""
+    rng = np.random.default_rng(seed)
+    m = n // 3
+    x = rng.uniform(-length / 2, length / 2, (m, 1))
+
+    def strip(y, z_extent):
+        z = rng.uniform(0, z_extent, (m, 1))
+        return np.concatenate([x, np.full_like(x, y), z], axis=1)
+
+    floor_y = rng.uniform(-width / 2, width / 2, (m, 1))
+    floor = np.concatenate([x, floor_y, np.zeros_like(x)], axis=1)
+    cloud = np.concatenate([
+        strip(-width / 2, 2.5), strip(width / 2, 2.5), floor
+    ]).astype(np.float32)
     if noise > 0:
         cloud = cloud + rng.normal(0, noise, cloud.shape).astype(np.float32)
     return cloud

@@ -17,7 +17,21 @@ launch counts set to 0 just before it and read just after:
   scans against a 262,144-point prior map, cropped to 65,536 and to
   131,072 points (the banded matcher K5 at both), against the same
   localizer on the CPU and against ground truth;
-- the golden file's prior-map and go-back scenarios.
+- the golden file's prior-map and go-back scenarios;
+- failure prediction: the golden risk-gated scenario and the bench
+  operating point with `failure_prediction_mode` and the shipped risk
+  classifier, each frame against the CPU App started from the card App's
+  state, and the card's risk stage against the CPU's on the same inputs;
+- the pair-registration CLI, `cli.main(["register", ...])`, on a
+  60,000-point pair with a known perturbation (ICP by K5, the Hausdorff
+  check by K1's index mode), and on an 8,192-point pair against the same
+  command on the CPU.
+
+Each kernel's line also carries the least time the card could take for
+the same work (`bound_ms`: FP32 operations at 67 TFLOP/s or bytes at
+3.35 TB/s, whichever is longer, counted from this run's inputs) and the
+time of one PyTorch call computing the same function where one exists
+(`library_ms`; none does for these kernels).
 
 Every phase asserts; the last line of standard output is
 `{"ok": true, "device": {...}}` only when all of them passed. Imports
@@ -43,6 +57,9 @@ KERNELS = {
     "nn_payload": dict(
         source="aicp_mapping_tpu_torch/_kernels/csrc/nn_payload.cu",
         replaces="aicp_mapping_tpu/ops/knn.py:322"),
+    "nn_argmin": dict(
+        source="aicp_mapping_tpu_torch/_kernels/csrc/nn_payload.cu",
+        replaces="aicp_mapping_tpu/ops/knn.py:139"),
     "banded_moments": dict(
         source="aicp_mapping_tpu_torch/_kernels/csrc/moments.cu",
         replaces="aicp_mapping_tpu/ops/normals.py:221, "
@@ -56,6 +73,19 @@ KERNELS = {
                  "aicp_mapping_tpu/ops/banded_nn.py:498"),
 }
 GT_TOL = 0.06                     # m, tests/test_parallel.py:308
+# Golden-file tolerances of the risk stage (tests/test_golden.py): %, 0-100
+# alignability, probability.
+TOL_RISK = {"fov_overlap": 2.0, "alignability": 5.0, "risk": 0.1}
+CLASSIFIER = os.path.join(ROOT, "data", "classification",
+                          "risk_classifier.npz")
+# The H100 SXM's published peaks (NVIDIA data sheet, at 700 W): FP32 off
+# the tensor cores and HBM3 bandwidth.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations per distance evaluation |q - r|^2: 3 sub, 3 mul, 2 add.
+OPS_PER_PAIR = 8
+# ... and per neighbour accumulated into the 10 moment sums
+OPS_PER_NEIGHBOUR = 10
 
 
 def log(*args):
@@ -91,6 +121,27 @@ def time_ms(torch, fn, reps=20, warmup=3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(ops: float, nbytes: float) -> dict:
+    """The least time the card could take for `ops` FP32 operations that
+    move `nbytes` of inputs and outputs once each, in ms, and which of the
+    two bounds it."""
+    t_ops, t_bytes = ops / PEAK_FP32, nbytes / PEAK_BYTES
+    return dict(bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None)
+
+
+def window_pairs(qmask, rmask, starts, band: int, tm: int = 512,
+                 tn: int = 1024) -> int:
+    """Valid (query, reference) pairs a banded kernel must evaluate: each
+    `tm`-query tile against the valid references of its `band` blocks."""
+    total = 0
+    for g, s in enumerate(starts.tolist()):
+        total += (int(qmask[g * tm:(g + 1) * tm].sum())
+                  * int(rmask[s * tn:(s + band) * tn].sum()))
+    return total
 
 
 def lidar_room(n: int, seed: int) -> np.ndarray:
@@ -155,7 +206,44 @@ def check_kernels(torch, results: dict) -> None:
         r = results.setdefault("nn_payload", dict(max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if M == 8192:
-            r.update(ms=ms, plain_ms=plain)
+            P = payload.shape[1]
+            r.update(ms=ms, plain_ms=plain, **bound(
+                OPS_PER_PAIR * int(qm.sum()) * int(rmask.sum()),
+                13 * (M + 8192) + 4 * P * 8192 + 4 * M * (1 + P)))
+            log(f"K1 nn_payload M={M}: bound {r['bound_ms'] * 1e3:.1f} us "
+                f"({r['bound_by']})")
+
+    # K1's index mode (Q2 #7) at the frame path's 8,192 points and at the
+    # 65,536 points of the pair-registration CLI's Hausdorff check
+    r = results.setdefault("nn_argmin", dict(max_abs_err=0.0))
+    for n in (8192, 65536):
+        q = torch.as_tensor(lidar_room(n, seed=5), device=dev)
+        ref_n = torch.as_tensor(lidar_room(n, seed=6), device=dev)
+        qm = torch.arange(n, device=dev) < n - n // 32
+        rm = torch.arange(n, device=dev) % 50 != 0
+        args = (q, qm, ref_n, rm)
+        d_k, i_k = knn.nn_argmin_kernel(*args)
+        d_p, i_p = knn.nn_argmin(*args)
+        torch.cuda.synchronize()
+        frac = (i_k == i_p)[qm].float().mean().item()
+        err = (d_k - d_p)[qm].abs().max().item()
+        log(f"#7 nn_argmin {n}x{n}: identical indices {frac:.5f}, max|dd2| "
+            f"{err:.3g} m^2")
+        assert frac >= 0.997, frac
+        assert err <= 3e-3, err
+        assert bool((d_k[~qm] == 3.4e38).all()) and bool((i_k[~qm] == 0).all())
+        ms = time_ms(torch, lambda: knn.nn_argmin_kernel(*args))
+        plain = time_ms(torch, lambda: knn.nn_argmin(*args), reps=5,
+                        warmup=1)
+        b = bound(OPS_PER_PAIR * int(qm.sum()) * int(rm.sum()),
+                  13 * 2 * n + 12 * n)
+        log(f"#7 nn_argmin {n}x{n}: kernel {ms * 1e3:.1f} us, plain "
+            f"{plain * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.1f} us "
+            f"({b['bound_by']})")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r[f"ms_{n}"], r[f"plain_ms_{n}"] = ms, plain
+        if n == 65536:
+            r.update(ms=ms, plain_ms=plain, **b)
 
     # K2 at the main path's 16,384 points, Morton-sorted as the prefilter
     # sorts them
@@ -167,16 +255,21 @@ def check_kernels(torch, results: dict) -> None:
     ps = p[perm].contiguous()
     ms = codes_s != banded_nn.SENTINEL
     args = (ps, ms, codes_s, 0.4)
-    err = moments_check(
-        torch, f"K2 banded_moments N={N}",
-        normals.sorted_radius_moments_kernel(*args),
-        normals.sorted_radius_moments(*args))
+    got = normals.sorted_radius_moments_kernel(*args)
+    err = moments_check(torch, f"K2 banded_moments N={N}", got,
+                        normals.sorted_radius_moments(*args))
+    starts = banded_nn.banded_window_starts(codes_s, codes_s, N // 1024, 8,
+                                            512, 1024)
+    k2_bound = bound(
+        OPS_PER_PAIR * window_pairs(ms, ms, starts, 8)
+        + OPS_PER_NEIGHBOUR * int(got[ms, 9].sum().item()),
+        13 * N + 4 * starts.numel() + 40 * N)
     ms_k = time_ms(torch, lambda: normals.sorted_radius_moments_kernel(*args))
     plain = time_ms(torch, lambda: normals.sorted_radius_moments(*args))
     log(f"K2 banded_moments N={N}: kernel {ms_k * 1e3:.1f} us, "
         f"plain {plain * 1e3:.1f} us")
     results["banded_moments"] = dict(max_abs_err=err, ms=ms_k,
-                                     plain_ms=plain)
+                                     plain_ms=plain, **k2_bound)
 
     # K3 at the golden scenario's 4,096 and at 8,192 points
     r = results.setdefault("radius_moments", dict(max_abs_err=0.0))
@@ -184,8 +277,8 @@ def check_kernels(torch, results: dict) -> None:
         p = torch.as_tensor(lidar_room(N, seed=4), device=dev)
         m = torch.arange(N, device=dev) < N - N // 16
         args = (p, m, 0.4)
-        err = moments_check(torch, f"K3 radius_moments N={N}",
-                            normals.radius_moments_kernel(*args),
+        got = normals.radius_moments_kernel(*args)
+        err = moments_check(torch, f"K3 radius_moments N={N}", got,
                             normals.radius_moments(*args))
         ms_k = time_ms(torch, lambda: normals.radius_moments_kernel(*args))
         plain = time_ms(torch, lambda: normals.radius_moments(*args))
@@ -193,7 +286,11 @@ def check_kernels(torch, results: dict) -> None:
             f"plain {plain * 1e3:.1f} us")
         r["max_abs_err"] = max(r["max_abs_err"], err)
         if N == 4096:
-            r.update(ms=ms_k, plain_ms=plain)
+            nv = int(m.sum())
+            r.update(ms=ms_k, plain_ms=plain, **bound(
+                OPS_PER_PAIR * nv * nv
+                + OPS_PER_NEIGHBOUR * int(got[m, 9].sum().item()),
+                13 * N + 40 * N))
 
 
 def check_banded_kernels(torch, results: dict, scene) -> None:
@@ -219,17 +316,22 @@ def check_banded_kernels(torch, results: dict, scene) -> None:
     cs, perm = torch.sort(codes, stable=True)
     args = (p[perm].contiguous(), cs != banded_nn.SENTINEL, cs, 0.4)
     N = p.shape[0]
-    err = moments_check(torch, f"K2 banded_moments N={N}",
-                        normals.sorted_radius_moments_kernel(*args),
+    got = normals.sorted_radius_moments_kernel(*args)
+    err = moments_check(torch, f"K2 banded_moments N={N}", got,
                         normals.sorted_radius_moments(*args))
+    starts = banded_nn.banded_window_starts(cs, cs, N // 1024, 8, 512, 1024)
+    b = bound(OPS_PER_PAIR * window_pairs(args[1], args[1], starts, 8)
+              + OPS_PER_NEIGHBOUR * int(got[args[1], 9].sum().item()),
+              13 * N + 4 * starts.numel() + 40 * N)
     ms_k = time_ms(torch, lambda: normals.sorted_radius_moments_kernel(*args))
     plain = time_ms(torch, lambda: normals.sorted_radius_moments(*args),
                     reps=3, warmup=1)
     log(f"K2 banded_moments N={N}: kernel {ms_k * 1e3:.1f} us, plain "
-        f"{plain * 1e3:.1f} us")
+        f"{plain * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.1f} us "
+        f"({b['bound_by']})")
     r = results["banded_moments"]
     r.update(max_abs_err=max(r["max_abs_err"], err), ms_262144=ms_k,
-             plain_ms_262144=plain)
+             plain_ms_262144=plain, bound_ms_262144=b["bound_ms"])
 
     # queries: scan 0 placed in the map, prefiltered as the App filters a
     # reading (8,192 points), under a small motion (an ICP iterate)
@@ -284,11 +386,18 @@ def check_banded_kernels(torch, results: dict, scene) -> None:
             plain = time_ms(torch, lambda: banded_nn.nn_payload_banded(*args))
             log(f"K5 M={M} N={n_ref} band={band}: kernel "
                 f"{ms_k * 1e3:.1f} us, plain {plain * 1e3:.1f} us")
+            P = pay.shape[1]
+            b = bound(OPS_PER_PAIR * window_pairs(qm, rpen == 0, starts, band),
+                      12 * M + 16 * n_ref + 4 * P * n_ref
+                      + 4 * starts.numel() + 4 * M * (1 + P))
+            log(f"K5 M={M} N={n_ref} band={band}: bound "
+                f"{b['bound_ms'] * 1e3:.1f} us ({b['bound_by']})")
             r["max_abs_err"] = max(r["max_abs_err"], e)
             r[f"ms_{phase}_{n_ref}"] = ms_k
             r[f"plain_ms_{phase}_{n_ref}"] = plain
+            r[f"bound_ms_{phase}_{n_ref}"] = b["bound_ms"]
             if (phase, n_ref) == ("fine", 131072):
-                r.update(ms=ms_k, plain_ms=plain)
+                r.update(ms=ms_k, plain_ms=plain, **b)
 
 
 def frame_lines_agree(got, want, what: str) -> None:
@@ -308,57 +417,139 @@ def frame_lines_agree(got, want, what: str) -> None:
     np.testing.assert_allclose(np.asarray(got.corrected_pose)[:3, 3],
                                want["corrected_t"], atol=TOL_CORRECTED_T,
                                err_msg=what)
+    for key, tol in TOL_RISK.items():
+        if key not in want:
+            continue
+        if want[key] < 0:
+            assert getattr(got, key) < 0, (what, key, got, want)
+        else:
+            assert abs(getattr(got, key) - want[key]) <= tol, (
+                what, key, getattr(got, key), want[key])
 
 
 def as_line(r) -> dict:
     return dict(accepted=r.accepted, registered=r.registered,
                 filtered_size=r.filtered_size,
                 octree_overlap=r.octree_overlap,
+                fov_overlap=r.fov_overlap, alignability=r.alignability,
+                risk=r.risk,
                 correction_t=np.asarray(r.correction)[:3, 3].tolist(),
                 corrected_t=np.asarray(r.corrected_pose)[:3, 3].tolist())
 
 
-def run_bench_slice(torch) -> None:
+def record_steps(app) -> list:
+    """Wrap `app`'s frame step to keep each call's arguments and output."""
+    calls, step = [], app._app_step
+
+    def recording(*args):
+        out = step(*args)
+        calls.append((args, out))
+        return out
+
+    app._app_step = recording
+    return calls
+
+
+def risk_stage_agrees(torch, cfg, call, what: str) -> None:
+    """The card's risk stage against the CPU's on the same inputs: that
+    frame's reference and filtered reading, copied to the CPU."""
+    from aicp_mapping_tpu_torch.classification import SVMModel
+    from aicp_mapping_tpu_torch.pipeline.fused import risk_stage
+
+    args, out = call
+    cpu = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+    debug = cfg.working_mode != "robot"
+    read_pose = cpu[3] @ cpu[2] if debug else cpu[2]
+    model = SVMModel(*cpu[10:14]) if len(cpu) > 10 else None
+    fov, align, risk, ok = risk_stage(
+        cfg, cpu[4], cpu[6], cpu[7], out.filtered_points.cpu(),
+        out.filtered_mask.cpu(), read_pose, out.overlap_percent.cpu(), model)
+    got = dict(fov_overlap=float(out.fov_overlap),
+               alignability=float(out.alignability), risk=float(out.risk))
+    want = dict(fov_overlap=float(fov), alignability=float(align),
+                risk=float(risk))
+    for key, tol in TOL_RISK.items():
+        assert abs(got[key] - want[key]) <= tol, (what, key, got, want)
+    assert bool(out.risk_ok) == bool(ok), (what, got, want)
+
+
+def run_bench_slice(torch, risk: bool = False) -> float:
     """Phase 4: the frame path at the benchmark's operating point on the
     card, each frame checked against the CPU App started from the card
-    App's state."""
-    from aicp_mapping_tpu_torch import AlignedCloud, App, Cloud
+    App's state; with `risk`, failure prediction on (the shipped
+    classifier) and the card's risk stage also checked against the CPU's
+    on the same inputs. Returns the steady ms/frame."""
+    from aicp_mapping_tpu_torch import AlignedCloud, App, Cloud, _kernels
     from aicp_mapping_tpu_torch.convert import (app_state_from_numpy,
                                                 app_state_to_numpy)
+    from aicp_mapping_tpu_torch.ops import segmentation
     from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
 
     cfg = cells().bench_config()
+    if risk:
+        cfg.failure_prediction_mode = True
+        cfg.classifier_path = CLASSIFIER
+    name = "bench slice with failure prediction" if risk else "bench slice"
     items, _ = synthetic_sequence(n_frames=6, n_points=60000, step=1.2,
                                   seed=0, world_size=60.0,
                                   sensor_range=40.0, noise=0.02)
     gpu, cpu = App(cfg, device="cuda"), App(cfg, device="cpu")
+    calls = record_steps(gpu)
     gpu_ms, cpu_s = [], []
     for i, (utime, pts, pose) in enumerate(items):
         if i > 0:
             app_state_from_numpy(cpu, **app_state_to_numpy(gpu))
         cloud = Cloud.from_numpy(pts, capacity=cfg.raw_capacity)
+        before = sum(_kernels.launch_counts().values())
+        segmentation.reset_propagation_rounds()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         rg = gpu.process_cloud(AlignedCloud.create(utime, cloud, pose))
         torch.cuda.synchronize()
         gpu_ms.append((time.perf_counter() - t0) * 1e3)
+        launches = sum(_kernels.launch_counts().values()) - before
+        rounds = segmentation.propagation_rounds()["rounds"]
         t0 = time.perf_counter()
         rc = cpu.process_cloud(AlignedCloud.create(utime, cloud, pose))
         cpu_s.append(time.perf_counter() - t0)
-        log(f"bench frame {i}: card {gpu_ms[-1]:.1f} ms, overlap "
-            f"{rg.octree_overlap:.3f} (cpu {rc.octree_overlap:.3f}), iters "
-            f"{rg.n_iterations} (cpu {rc.n_iterations}), filtered "
-            f"{rg.filtered_size} (cpu {rc.filtered_size}), correction_t "
+        log(f"{name} frame {i}: card {gpu_ms[-1]:.1f} ms, overlap "
+            f"{rg.octree_overlap:.3f} (cpu {rc.octree_overlap:.3f}), fov "
+            f"{rg.fov_overlap:.3f} (cpu {rc.fov_overlap:.3f}), alignability "
+            f"{rg.alignability:.3f} (cpu {rc.alignability:.3f}), risk "
+            f"{rg.risk:.4f} (cpu {rc.risk:.4f}), iters {rg.n_iterations} "
+            f"(cpu {rc.n_iterations}), filtered {rg.filtered_size} (cpu "
+            f"{rc.filtered_size}), correction_t "
             f"{np.round(rg.correction[:3, 3], 4).tolist()} (cpu "
-            f"{np.round(rc.correction[:3, 3], 4).tolist()})")
+            f"{np.round(rc.correction[:3, 3], 4).tolist()}); port kernel "
+            f"launches {launches}, label-propagation rounds {rounds}")
         assert rg.reference_id == rc.reference_id, (i, rg, rc)
-        frame_lines_agree(rg, as_line(rc), f"bench frame {i}")
+        # A risk within the tolerance of the threshold on both sides may
+        # gate on one and not the other; then only the risk stage compares.
+        marginal = (risk and rg.registered != rc.registered
+                    and max(abs(rg.risk - cfg.risk_threshold),
+                            abs(rc.risk - cfg.risk_threshold))
+                    <= TOL_RISK["risk"])
+        if marginal:
+            log(f"{name} frame {i}: risk at the threshold, gated on one "
+                "side only")
+            want = as_line(rc)
+            for key, tol in TOL_RISK.items():
+                assert abs(getattr(rg, key) - want[key]) <= tol, (i, key)
+        else:
+            frame_lines_agree(rg, as_line(rc), f"{name} frame {i}")
+        if risk and i > 0:
+            risk_stage_agrees(torch, cfg, calls[-1], f"{name} frame {i}")
+            assert 0.0 <= rg.risk <= 1.0 and rounds > 0, rg
+    if risk:
+        assert any(r.registered for r in gpu.frames[1:]), gpu.frames
+    else:
         assert all(r.registered for r in gpu.frames[1:]), gpu.frames
     steady = gpu_ms[2:]
-    log(f"bench slice on the card: {np.mean(steady):.2f} ms/frame "
+    log(f"{name} on the card: {np.mean(steady):.2f} ms/frame "
         f"(mean of frames 2-{len(gpu_ms) - 1}, after the bootstrap and one "
         f"warm-up frame; min {min(steady):.2f}, max {max(steady):.2f}); "
         f"CPU App {np.mean(cpu_s[2:]):.2f} s/frame")
+    return float(np.mean(steady))
 
 
 def run_golden(torch) -> None:
@@ -385,6 +576,157 @@ def run_golden(torch) -> None:
         frame_lines_agree(r, want, f"golden frame {i}")
     log(f"golden scenario on the card: {len(golden)} frames match "
         "tests/golden/pipeline_golden.json")
+
+
+def run_golden_risk(torch) -> None:
+    """The golden risk-gated scenario (tests/test_golden.py::_run_risk_gated:
+    a degenerate corridor scan replaces frame 4) with the shipped
+    classifier on the card: each frame against the CPU App started from
+    the card App's state and the card's risk stage against the CPU's on the
+    same inputs; every frame the golden file gates is gated, and a gated
+    frame becomes the next frame's reference."""
+    from aicp_mapping_tpu_torch import (AlignedCloud, App, Cloud,
+                                        PipelineConfig)
+    from aicp_mapping_tpu_torch.convert import (app_state_from_numpy,
+                                                app_state_to_numpy)
+    from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
+    from aicp_mapping_tpu_torch.tools.synthetic import corridor_cloud
+
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "pipeline_golden.json")) as f:
+        golden = json.load(f)["risk_gated"]
+    cfg = PipelineConfig(raw_capacity=8192, downsample_capacity=4096,
+                         filtered_capacity=2048, min_cluster_size=20,
+                         failure_prediction_mode=True,
+                         align_ds_capacity=1024, align_max_clusters=8,
+                         classifier_path=CLASSIFIER)
+    items, _ = synthetic_sequence(n_frames=7, n_points=5000, seed=11)
+    bad = corridor_cloud(n=5000, seed=3, noise=0.01) + np.float32(
+        [60.0, 60.0, 0.0])
+    items[4] = (items[4][0], bad.astype(np.float32), items[4][2])
+    gpu, cpu = App(cfg, device="cuda"), App(cfg, device="cpu")
+    calls = record_steps(gpu)
+    got = []
+    for i, ((utime, pts, pose), want) in enumerate(zip(items, golden)):
+        if i > 0:
+            app_state_from_numpy(cpu, **app_state_to_numpy(gpu))
+        cloud = Cloud.from_numpy(pts, capacity=cfg.raw_capacity)
+        rg = gpu.process_cloud(AlignedCloud.create(utime, cloud, pose))
+        rc = cpu.process_cloud(AlignedCloud.create(utime, cloud, pose))
+        log(f"golden risk frame {i}: registered {rg.registered} (cpu "
+            f"{rc.registered}, golden {want['registered']}), overlap "
+            f"{rg.octree_overlap:.3f} (golden {want['octree_overlap']}), fov "
+            f"{rg.fov_overlap:.3f} ({want['fov_overlap']}), alignability "
+            f"{rg.alignability:.4f} (cpu {rc.alignability:.4f}, golden "
+            f"{want['alignability']}), risk {rg.risk:.4f} (cpu "
+            f"{rc.risk:.4f}, golden {want['risk']})")
+        assert (rg.reading_id, rg.reference_id) == (rc.reading_id,
+                                                    rc.reference_id), i
+        assert rg.reading_id == want["reading_id"], (i, rg)
+        frame_lines_agree(rg, as_line(rc), f"golden risk frame {i}")
+        if i > 0:
+            risk_stage_agrees(torch, cfg, calls[-1], f"golden risk frame {i}")
+        assert rg.accepted, rg
+        if not want["registered"]:
+            assert not rg.registered, (i, rg)
+        got.append(rg)
+    for i, r in enumerate(got[:-1]):
+        if not r.registered:
+            assert np.allclose(r.correction[:3, 3], 0.0), r
+            assert got[i + 1].reference_id == i, (i, got[i + 1])
+    assert got[4].octree_overlap == 0.0 and got[4].risk > 0.99, got[4]
+    log(f"golden risk scenario on the card: {len(got)} frames agree with "
+        f"the CPU App; gated frames {[r.reading_id for r in got[1:] if not r.registered]}"
+        f" (golden: {[w['reading_id'] for w in golden[1:] if not w['registered']]})")
+
+
+def register(argv) -> dict:
+    """`python -m aicp_mapping_tpu_torch register ...` in this process;
+    returns its JSON."""
+    import contextlib
+    import io
+
+    from aicp_mapping_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(["register", *argv]) == 0
+    return json.loads(buf.getvalue())
+
+
+def run_register(torch) -> None:
+    """The pair-registration CLI on the card: a 60,000-point pair (capacity
+    65,536, so ICP takes K5 by shape and the Hausdorff check runs K1's index
+    mode at 65,536 x 65,536) with a known perturbation of 8 cm and 1.5
+    degrees about the sensor, which the correction must undo (2 cm, 0.5
+    degrees), and whose Hausdorff distance must equal the plain twin's on
+    the card; then an 8,192-point pair, field by field against the same
+    command on the CPU."""
+    import tempfile
+
+    from aicp_mapping_tpu_torch import Cloud
+    from aicp_mapping_tpu_torch.io import write_pcd
+    from aicp_mapping_tpu_torch.ops import knn
+    from aicp_mapping_tpu_torch.ops.quantile import masked_quantile
+
+    center = np.float32([45.0, -38.0, 1.5])
+    yaw = np.deg2rad(1.5)
+    P = np.eye(4, dtype=np.float32)
+    P[:2, :2] = [[np.cos(yaw), -np.sin(yaw)], [np.sin(yaw), np.cos(yaw)]]
+    P[:3, 3] = center - P[:3, :3] @ center + np.float32([0.08, -0.05, 0.02])
+    vp = (*center.tolist(), 1.0, 0.0, 0.0, 0.0)
+    ref = lidar_room(60000, seed=21)
+    read = (lidar_room(60000, seed=22) @ P[:3, :3].T + P[:3, 3]).astype(
+        np.float32)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        paths = [os.path.join(d, f) for f in ("read.pcd", "ref.pcd")]
+        write_pcd(paths[0], read, viewpoint=vp)
+        write_pcd(paths[1], ref, viewpoint=vp)
+        argv = [*paths, "--classifier", CLASSIFIER]
+        register(argv)                      # warm-up: first-use costs
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = register(argv)
+        wall = time.perf_counter() - t0
+        T = np.asarray(out["correction"], np.float32)
+        E = T @ P.astype(np.float64)
+        dr = np.rad2deg(np.arccos(np.clip((np.trace(E[:3, :3]) - 1) / 2,
+                                          -1, 1)))
+        dt = np.linalg.norm(E[:3, :3] @ center + E[:3, 3] - center)
+        # the Hausdorff distance by the plain twin on the card
+        dev = "cuda"
+        a = Cloud.from_numpy(read, capacity=65536, device=dev).transform(
+            torch.as_tensor(T, device=dev))
+        b = Cloud.from_numpy(ref, capacity=65536, device=dev)
+        d_ab = knn.nn_argmin(a.points, a.mask, b.points, b.mask)[0]
+        d_ba = knn.nn_argmin(b.points, b.mask, a.points, a.mask)[0]
+        plain = max(float(masked_quantile(d_ab, a.mask, 1.0)),
+                    float(masked_quantile(d_ba, b.mask, 1.0))) ** 0.5
+        log(f"register 60,000-point pair on the card: {wall:.2f} s; "
+            f"overlap {out['overlap_percent']:.3f}, fov "
+            f"{out['fov_overlap']:.3f}, alignability "
+            f"{out['alignability']:.3f}, risk {out['risk']:.4f}, trim "
+            f"{out['trim_ratio']:.3f}, iterations {out['n_iterations']}, "
+            f"residual at the sensor {dt * 100:.2f} cm / {dr:.4f} deg, "
+            f"Hausdorff {out['hausdorff']:.5f} m (plain twin {plain:.5f})")
+        assert dt < 0.02 and dr < 0.5, (dt, dr)
+        assert abs(out["hausdorff"] - plain) <= 1e-5, (out, plain)
+
+        pick = np.sort(np.random.default_rng(0).choice(60000, 8192,
+                                                       replace=False))
+        write_pcd(paths[0], read[pick], viewpoint=vp)
+        write_pcd(paths[1], ref[pick], viewpoint=vp)
+        got = register(argv)
+        want = register(argv + ["--device", "cpu"])
+    log(f"register 8,192-point pair: card {json.dumps(got)}; cpu "
+        f"{json.dumps(want)}")
+    for key, tol in (("overlap_percent", TOL_OVERLAP), ("hausdorff", 0.02),
+                     *TOL_RISK.items()):
+        assert abs(got[key] - want[key]) <= tol, (key, got, want)
+    np.testing.assert_allclose(np.asarray(got["correction"])[:3, 3],
+                               np.asarray(want["correction"])[:3, 3],
+                               atol=TOL_CORRECTION_T)
 
 
 def run_localization(torch, scene, out_capacity: int) -> None:
@@ -536,10 +878,11 @@ def main() -> int:
     check_kernels(torch, results)
     check_banded_kernels(torch, results, scene)
 
-    # 4-7. the main paths, each with its own launch counts
+    # 4-10. the main paths, each with its own launch counts
+    bench_ms = {}
     paths = [
-        drive("frame", lambda: run_bench_slice(torch),
-              ("nn_payload", "banded_moments")),
+        drive("frame", lambda: bench_ms.update(
+            off=run_bench_slice(torch)), ("nn_payload", "banded_moments")),
         drive("golden", lambda: run_golden(torch),
               ("nn_payload", "radius_moments")),
         drive("localization", lambda: (
@@ -548,10 +891,19 @@ def main() -> int:
             ("banded_nn_payload_stream", "banded_moments")),
         drive("golden map modes", lambda: run_golden_maps(torch),
               ("nn_payload", "radius_moments")),
+        drive("golden risk", lambda: run_golden_risk(torch),
+              ("nn_payload", "radius_moments")),
+        drive("frame with failure prediction", lambda: bench_ms.update(
+            on=run_bench_slice(torch, risk=True)),
+            ("nn_payload", "banded_moments")),
+        drive("register", lambda: run_register(torch),
+              ("nn_argmin", "banded_nn_payload_stream", "nn_payload")),
     ]
+    log(f"bench operating point on the card: {bench_ms['off']:.2f} ms/frame"
+        f" without failure prediction, {bench_ms['on']:.2f} with it")
     counts = {k: sum(c[k] for c in paths) for k in KERNELS}
 
-    # 8. the main paths went through every kernel
+    # 11. the main paths went through every kernel
     log(f"launches on all paths: {counts}")
     assert all(counts[k] > 0 for k in KERNELS), counts
 

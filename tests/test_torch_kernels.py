@@ -83,6 +83,27 @@ def test_nn_payload_kernel_matches_plain(cuda, M, N):
     assert bool((d_k[~qm] == 3.4e38).all()) and bool((p_k[~qm] == 0).all())
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N", [(8192, 8192), (65536, 65536), (1000, 1777)])
+def test_nn_argmin_kernel_matches_plain(cuda, M, N):
+    """K1's index mode (Q2 #7): >= 99.7% identical indices, |d2| within
+    3e-3 m^2, masked queries exactly (BIG, 0)."""
+    q = torch.as_tensor(_lidar_room(M, 7), device=cuda)
+    r = torch.as_tensor(_lidar_room(N, 8), device=cuda)
+    qm = torch.arange(M, device=cuda) < M - M // 16
+    rm = torch.arange(N, device=cuda) % 7 != 0
+    before = _kernels.launch_counts()["nn_argmin"]
+    d_k, i_k = knn.nn_argmin_kernel(q, qm, r, rm)
+    d_p, i_p = knn.nn_argmin(q, qm, r, rm)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["nn_argmin"] == before + 1
+    assert i_k.dtype == torch.int64
+    assert (i_k == i_p)[qm].float().mean().item() >= 0.997
+    assert (d_k - d_p)[qm].abs().max().item() <= 3e-3
+    assert bool((d_k[~qm] == 3.4e38).all()) and bool((i_k[~qm] == 0).all())
+    assert bool(rm[i_k[qm]].all())
+
+
 def _assert_moments_agree(a, b):
     diff = (a[:, 9] - b[:, 9]).abs()
     assert (diff <= 2).float().mean().item() >= 0.99

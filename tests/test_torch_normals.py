@@ -163,5 +163,37 @@ def test_kernel_wrappers_use_plain_twins_on_cpu():
         normals.sorted_radius_moments_kernel(*args, tm=256, tn=256).numpy(),
         normals.sorted_radius_moments(*args, tm=256, tn=256).numpy())
     assert _kernels.launch_counts() == {
-        "nn_payload": 0, "banded_moments": 0, "radius_moments": 0,
-        "banded_nn_payload_stream": 0}
+        "nn_payload": 0, "nn_argmin": 0, "banded_moments": 0,
+        "radius_moments": 0, "banded_nn_payload_stream": 0}
+
+
+def test_isolated_point_normals_match_jitted_jax():
+    """The covariance entries rounded once, as jitted JAX fuses them: on
+    the golden scenario's first voxelized frame, the normals and curvature
+    of points whose neighbourhood is themselves alone equal jitted JAX's
+    (they are the rounding noise of the squared coordinates), and those
+    of neighbourhoods of more than 3 points agree to 1e-3 for >= 99.9%."""
+    import jax
+
+    from aicp_mapping_tpu.ops.voxel import voxel_downsample
+    from aicp_mapping_tpu.pipeline.sequence import synthetic_sequence
+
+    jn = jnorm
+    items, _ = synthetic_sequence(n_frames=1, n_points=5000, seed=11)
+    p = np.zeros((8192, 3), np.float32)
+    p[:5000] = items[0][1]
+    dp, dm = (np.asarray(a) for a in voxel_downsample(
+        p, np.arange(8192) < 5000, 0.08, 4096))
+    vp = np.asarray(items[0][2])[:3, 3]
+    M = np.asarray(jax.jit(jn._radius_moments_xla, static_argnums=2)(
+        dp, dm, 0.4))
+    nj, cj, _ = (np.asarray(a) for a in jax.jit(jn.moments_to_normals)(
+        M, dp, dm, vp))
+    nt, ct, _ = (a.numpy() for a in normals.moments_to_normals(
+        *(torch.as_tensor(a) for a in (M, dp, dm, vp))))
+    close = np.abs(nt - nj).max(1) <= 1e-3
+    alone = dm & (M[:, 9] == 1)
+    assert alone.sum() > 100
+    assert close[alone].all()
+    np.testing.assert_allclose(ct[alone], cj[alone], atol=1e-4)
+    assert close[dm & (M[:, 9] > 3)].mean() >= 0.999

@@ -140,7 +140,7 @@ def test_app_prior_map_matches_golden(sequence):
     world = np.concatenate([p for _, p, _ in sequence[:6]])
     cfg = _golden_cfg(PipelineConfig, localize_against_prior_map=True,
                       crop_map_around_base=20.0, map_capacity=16384)
-    app = App(cfg)
+    app = App(cfg, device="cpu")
     app.set_prior_map(Cloud.from_numpy(world, capacity=16384))
     assert app.prior_map.capacity == 16384
     frames = [app.process_cloud(_frame(cfg, p, pose))
@@ -150,7 +150,7 @@ def test_app_prior_map_matches_golden(sequence):
     assert all(f.octree_overlap == 50.0 and f.reference_id == -1
                for f in frames)
 
-    a, b = App(cfg), App(cfg)
+    a, b = App(cfg, device="cpu"), App(cfg, device="cpu")
     a.set_prior_map(Cloud.from_numpy(world, capacity=16384))
     for _, p, pose in sequence[:3]:
         a.process_cloud(_frame(cfg, p, pose))
@@ -166,7 +166,7 @@ def test_app_go_back_matches_golden(sequence):
     go_back_to_map() makes the built map the prior map."""
     cfg = _golden_cfg(PipelineConfig, crop_map_around_base=20.0,
                       map_capacity=16384)
-    app = App(cfg)
+    app = App(cfg, device="cpu")
     frames = []
     for i, (_, p, pose) in enumerate(sequence):
         if i == 5:
@@ -202,7 +202,8 @@ def test_built_and_loaded_map_modes_match_jax(sequence, mode):
                   merge_aligned_clouds_to_map=True,
                   reference_update_frequency=2)
     jcfg = _golden_cfg(jconfig.PipelineConfig, **kw)
-    japp, app = JaxApp(jcfg), App(_golden_cfg(PipelineConfig, **kw))
+    japp, app = JaxApp(jcfg), App(_golden_cfg(PipelineConfig, **kw),
+                                   device="cpu")
     if mode != "built_map":
         world = np.concatenate([p for _, p, _ in sequence[:3]])
         japp.set_prior_map(JCloud.from_numpy(world, capacity=16384))
@@ -232,7 +233,7 @@ def test_set_initial_guess_matches_jax():
     odom = np.asarray(jfused.se3.se3_exp(jnp.asarray(
         rng.normal(size=6).astype(np.float32))))
     japp, app = JaxApp(_golden_cfg(jconfig.PipelineConfig)), App(
-        _golden_cfg(PipelineConfig))
+        _golden_cfg(PipelineConfig), device="cpu")
     japp.set_initial_guess(pose, odom)
     app.set_initial_guess(pose, odom)
     np.testing.assert_allclose(app.total_correction, japp.total_correction,
@@ -249,7 +250,7 @@ def test_convert_round_trips(sequence):
     assert convert.config_from_dict(dataclasses.asdict(tcfg)) == tcfg
 
     cfg = _golden_cfg(PipelineConfig, reference_update_frequency=2)
-    a, b = App(cfg), App(cfg)
+    a, b = App(cfg, device="cpu"), App(cfg, device="cpu")
     for _, p, pose in sequence[:4]:
         a.process_cloud(_frame(cfg, p, pose))
     convert.app_state_from_numpy(b, **convert.app_state_to_numpy(a))
@@ -277,7 +278,8 @@ def test_app_seeded_from_jax_app_state(sequence):
                           pose)
     for _, p, pose in sequence[:3]:
         japp.process_cloud(jframe(p, pose))
-    app = App(convert.config_from_dict(dataclasses.asdict(jcfg)))
+    app = App(convert.config_from_dict(dataclasses.asdict(jcfg)),
+              device="cpu")
     pts, mask, normals = (np.array(a) for a in japp._ref_device)
     convert.app_state_from_numpy(
         app, pts, mask, normals, japp._ref_pose, japp.total_correction,
@@ -371,7 +373,12 @@ def test_kernels_never_fall_back(monkeypatch, tmp_path):
     q = torch.zeros((8, 3))
     m = torch.ones(8, dtype=torch.bool)
     knn.nn_payload_kernel(q, m, q, m, torch.zeros((8, 8)))
+    knn.nn_argmin_kernel(q, m, q, m)
     assert _kernels.launch_counts()["nn_payload"] == 0
+    assert _kernels.launch_counts()["nn_argmin"] == 0
+    with pytest.raises(ValueError, match="no kernel"):
+        knn.nn_argmin_kernel(q.to("meta"), m.to("meta"), q.to("meta"),
+                             m.to("meta"))
     meta = q.to("meta")
     with pytest.raises(ValueError, match="no kernel"):
         knn.nn_payload_kernel(meta, m.to("meta"), meta, m.to("meta"),
@@ -402,10 +409,75 @@ def test_kernels_never_fall_back(monkeypatch, tmp_path):
 
 
 def test_app_rejects_unported_modes():
-    for kw in (dict(failure_prediction_mode=True),
-               dict(async_finalize=True), dict(wire_voxel=0.08),
+    for kw in (dict(async_finalize=True), dict(wire_voxel=0.08),
                dict(quantized_upload=True), dict(debug_dir="dumps")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            App(PipelineConfig(**kw))
-    with pytest.raises(NotImplementedError):
-        fused.make_app_frame_step(PipelineConfig(), with_risk=True)
+            App(PipelineConfig(**kw), device="cpu")
+
+
+def test_app_loads_the_classifier_of_the_config():
+    """failure_prediction_mode with classifier_path: the App loads the
+    model as the JAX App does (the file's threshold replaces the config's
+    on the classifier; the gate reads risk_threshold) and hands it to the
+    risk stage."""
+    path = os.path.join(ROOT, "data", "classification", "risk_classifier.npz")
+    kw = dict(failure_prediction_mode=True, classifier_path=path,
+              risk_threshold=0.3)
+    app = App(PipelineConfig(**kw), device="cpu")
+    assert app.classifier.threshold == \
+        JaxApp(jconfig.PipelineConfig(**kw)).classifier.threshold
+    assert len(app._clf_params) == 4
+    w = np.load(path)["w"]
+    np.testing.assert_array_equal(app._clf_params[0].numpy(), w)
+
+
+def test_app_frame_step_with_risk_matches_jax(sequence):
+    """make_app_frame_step(with_risk=True, with_classifier=True) on the
+    golden scenario's frame 1 against its reference: the same gate and
+    the risk fields within the golden tolerances."""
+    from aicp_mapping_tpu.classification.classifier import RiskClassifier
+
+    jcfg = dataclasses.replace(
+        _golden_cfg(jconfig.PipelineConfig), failure_prediction_mode=True,
+        align_ds_capacity=1024, align_max_clusters=8)
+    clf = RiskClassifier()
+    clf.load(os.path.join(ROOT, "data", "classification",
+                          "risk_classifier.npz"))
+    m = clf.model
+    (_, p0, pose0), (_, p1, pose1) = sequence[0], sequence[1]
+    ref = [np.array(a) for a in jfused.make_reference_prep(jcfg)(
+        *_padded(p0, jcfg.raw_capacity), jnp.asarray(pose0[:3, 3]))]
+    raw = _padded(p1, jcfg.raw_capacity)
+    eye = np.eye(4, dtype=np.float32)
+    want = jfused.make_app_frame_step(jcfg, True, True)(
+        *raw, pose1, eye, ref[0], ref[2], ref[1], pose0, np.float32(-1.0),
+        np.bool_(False), m.w, m.b, m.mean, m.std)
+
+    def t(a):
+        return torch.as_tensor(np.array(a))
+
+    tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    got = fused.make_app_frame_step(tcfg, True, True)(
+        t(raw[0]), t(raw[1]), t(pose1), t(eye), t(ref[0]), t(ref[2]),
+        t(ref[1]), t(pose0), -1.0, False, t(m.w), t(m.b), t(m.mean),
+        t(m.std))
+    assert bool(got.risk_ok) == bool(want.risk_ok)
+    for key in ("fov_overlap", "alignability", "risk"):
+        assert abs(float(getattr(got, key)) - float(getattr(want, key))) \
+            <= TOLERANCES[key], key
+
+
+def test_entry_points_run_on_the_card_by_default():
+    """App, ShardedMapLocalizer and convert.localizer_from_state default to
+    the card; without one they raise instead of running on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults would run there")
+    from aicp_mapping_tpu_torch.parallel import ShardedMapLocalizer
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        App(PipelineConfig())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ShardedMapLocalizer(np.zeros((2048, 3), np.float32))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        convert.localizer_from_state({})
+    assert App(PipelineConfig(), device="cpu").device.type == "cpu"
