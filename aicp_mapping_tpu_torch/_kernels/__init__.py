@@ -11,8 +11,10 @@ machines import the package without `nvcc` or a card.
 Every kernel wrapper (in `ops/knn.py`, `ops/normals.py` and
 `ops/banded_nn.py`) adds one to its launch count right after its kernel
 was launched, and nowhere else, so a run can show that the main path
-really went through the kernels. K1 has two wrappers and two counts:
-`nn_payload` (the ICP matcher) and `nn_argmin` (its index mode).
+really went through the kernels. K1 and K5 each have two modes, with a
+wrapper and a count each: K1's `nn_payload` (the ICP matcher) and
+`nn_argmin` (its index mode), K5's `banded_nn_payload_stream` and
+`banded_nn_argmin`.
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # One count per kernel, keyed by the name chip_smoke.py reports.
 _launches = {"nn_payload": 0, "nn_argmin": 0, "banded_moments": 0,
-             "radius_moments": 0, "banded_nn_payload_stream": 0}
+             "radius_moments": 0, "banded_nn_payload_stream": 0,
+             "banded_nn_argmin": 0}
 _lib = None
 _lock = threading.Lock()
 
@@ -53,6 +56,9 @@ _SIGNATURES = {
     # dist_out, payload_out, stream
     "aicp_banded_nn_payload_stream": (_P, _I, _P, _P, _I, _P, _I, _P, _I, _I,
                                       _I, _P, _P, _P),
+    # q, m, rs, rpen, n, starts, tile_m, tile_n, band, dist_out, idx_out,
+    # stream
+    "aicp_banded_nn_argmin": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P),
 }
 
 

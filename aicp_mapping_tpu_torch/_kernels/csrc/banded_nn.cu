@@ -1,11 +1,21 @@
-// K5 — Morton-banded 1-NN with payload pickup: the map-scale ICP matcher.
+// K5 — Morton-banded 1-NN: the map-scale ICP matcher and the banded NN API,
+// in two modes that share one kernel template, so that they cannot drift
+// apart:
 //
-// K5 replaces both TPU banded split kernels of
-// aicp_mapping_tpu/ops/banded_nn.py: _banded_payload_split_kernel (wrapper
-// nn_payload_banded_resident_split, reference resident in VMEM up to 64
-// blocks) and _banded_payload_split_stream_kernel (wrapper
-// nn_payload_banded_stream_split, above 64 blocks). The 64-block split is a
-// VMEM limit; here one kernel serves any band.
+// - payload mode (aicp_banded_nn_payload_stream): the squared distance and
+//   the winner's payload row. Replaces every banded payload kernel of
+//   aicp_mapping_tpu/ops/banded_nn.py: the bf16 split kernels
+//   _banded_payload_split_kernel (wrapper nn_payload_banded_resident_split,
+//   reference resident in VMEM up to 64 blocks) and
+//   _banded_payload_split_stream_kernel (nn_payload_banded_stream_split,
+//   above 64 blocks), and the f32 ones _banded_payload_kernel
+//   (nn_payload_banded_sorted, scalar-prefetched window) and
+//   _banded_payload_kernel_v2 (nn_payload_banded_resident, reference in
+//   block layout). Residency in VMEM and scalar prefetch are the TPU's
+//   concern; here one kernel serves any band and layout.
+// - index mode (aicp_banded_nn_argmin): the squared distance and the sorted
+//   index of the winner, -1 when the window holds no valid reference.
+//   Replaces _banded_kernel (wrapper nn_argmin_banded_prepared).
 // Both clouds are Morton-sorted by the caller (ops/banded_nn.py); the queries
 // of each tile of `tile_m` scan only the `band` reference blocks of `tile_n`
 // points that start at the tile's window start (banded_window_starts), and
@@ -62,19 +72,27 @@ __device__ __forceinline__ int window_begin(const int* starts, int first,
   return max(0, min(starts[first / tile_m] * tile_n, n - width));
 }
 
+// The epilogue: the distance, and the winner's payload row (a zero row for
+// no winner) or its sorted index (-1 for none).
+template <bool kPayload>
 __device__ __forceinline__ void write_result(int i, int m, float best,
                                              int best_j, const float* pay,
                                              int p, float* dist_out,
-                                             float* pay_out) {
+                                             float* pay_out,
+                                             long long* idx_out) {
   if (i >= m) return;
   dist_out[i] = best;
-  float* dst = pay_out + static_cast<size_t>(i) * p;
-  if (best_j < 0) {
-    for (int c = 0; c < p; ++c) dst[c] = 0.f;
-    return;
+  if constexpr (kPayload) {
+    float* dst = pay_out + static_cast<size_t>(i) * p;
+    if (best_j < 0) {
+      for (int c = 0; c < p; ++c) dst[c] = 0.f;
+      return;
+    }
+    const float* src = pay + static_cast<size_t>(best_j) * p;
+    for (int c = 0; c < p; ++c) dst[c] = src[c];
+  } else {
+    idx_out[i] = best_j;
   }
-  const float* src = pay + static_cast<size_t>(best_j) * p;
-  for (int c = 0; c < p; ++c) dst[c] = src[c];
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -108,6 +126,7 @@ __device__ __forceinline__ void issue_chunk(float* sxyz, float* spen,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
+template <bool kPayload>
 __global__ void __launch_bounds__(kThreads)
 banded_stream_kernel(const float* __restrict__ q, int m,
                      const float* __restrict__ rs,
@@ -115,7 +134,8 @@ banded_stream_kernel(const float* __restrict__ q, int m,
                      const float* __restrict__ pay, int p,
                      const int* __restrict__ starts, int tile_m, int tile_n,
                      int band, float* __restrict__ dist_out,
-                     float* __restrict__ pay_out) {
+                     float* __restrict__ pay_out,
+                     long long* __restrict__ idx_out) {
   // two stages of one 1024-point chunk each: 2 x (12 KB + 4 KB)
   __shared__ __align__(16) float sxyz[2][3 * kTile];
   __shared__ __align__(16) float spen[2][kTile];
@@ -163,28 +183,52 @@ banded_stream_kernel(const float* __restrict__ q, int m,
     }
     __syncthreads();  // stage read by all before it is refilled
   }
-  write_result(i, m, best, best_j, pay, p, dist_out, pay_out);
+  write_result<kPayload>(i, m, best, best_j, pay, p, dist_out, pay_out,
+                         idx_out);
+}
+
+template <bool kPayload>
+int launch(const float* q, int m, const float* rs, const float* rpen, int n,
+           const float* pay, int p, const int* starts, int tile_m,
+           int tile_n, int band, float* dist_out, float* pay_out,
+           long long* idx_out, void* stream) {
+  if (m > 0) {
+    const int blocks = (m + kThreads - 1) / kThreads;
+    banded_stream_kernel<kPayload><<<blocks, kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+        q, m, rs, rpen, n, pay, p, starts, tile_m, tile_n, band, dist_out,
+        pay_out, idx_out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 }  // namespace aicp
 
-// K5. q (m, 3) f32 sorted queries, rs (n, 3) f32 sorted references, rpen
-// (n,) f32 0 or +BIG, pay (n, p) f32 sorted payload, starts (m / tile_m,)
-// int32 window starts in blocks of tile_n -> dist_out (m,), pay_out (m, p).
-// Requires m % tile_m == 0, tile_m % 128 == 0, n % tile_n == 0,
-// tile_n % 4 == 0, 1 <= band <= n / tile_n, and rs, rpen 16-byte aligned
-// (cp.async copies 16-byte pieces).
+// K5, both modes: q (m, 3) f32 sorted queries, rs (n, 3) f32 sorted
+// references, rpen (n,) f32 0 or +BIG, starts (m / tile_m,) int32 window
+// starts in blocks of tile_n. Requires m % tile_m == 0, tile_m % 128 == 0,
+// n % tile_n == 0, tile_n % 4 == 0, 1 <= band <= n / tile_n, and rs, rpen
+// 16-byte aligned (cp.async copies 16-byte pieces).
+
+// Payload mode: pay (n, p) f32 sorted payload -> dist_out (m,), pay_out
+// (m, p).
 extern "C" int aicp_banded_nn_payload_stream(
     const float* q, int m, const float* rs, const float* rpen, int n,
     const float* pay, int p, const int* starts, int tile_m, int tile_n,
     int band, float* dist_out, float* pay_out, void* stream) {
-  if (m > 0) {
-    const int blocks = (m + aicp::kThreads - 1) / aicp::kThreads;
-    aicp::banded_stream_kernel<<<blocks, aicp::kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
-        q, m, rs, rpen, n, pay, p, starts, tile_m, tile_n, band, dist_out,
-        pay_out);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return aicp::launch<true>(q, m, rs, rpen, n, pay, p, starts, tile_m, tile_n,
+                            band, dist_out, pay_out, nullptr, stream);
+}
+
+// Index mode: -> dist_out (m,), idx_out (m,) int64 sorted index, -1 where
+// the window holds no valid reference.
+extern "C" int aicp_banded_nn_argmin(const float* q, int m, const float* rs,
+                                     const float* rpen, int n,
+                                     const int* starts, int tile_m,
+                                     int tile_n, int band, float* dist_out,
+                                     long long* idx_out, void* stream) {
+  return aicp::launch<false>(q, m, rs, rpen, n, nullptr, 0, starts, tile_m,
+                             tile_n, band, dist_out, nullptr, idx_out,
+                             stream);
 }

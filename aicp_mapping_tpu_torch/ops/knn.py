@@ -7,9 +7,23 @@ Squared distances are taken in difference form, |q - r|^2, exact to f32
 rounding: the JAX package's expansion |q|^2 - 2 q.r + |r|^2 is a
 matrix-unit formulation that carries ~1e-3 m^2 of rounding noise at 60 m
 lidar coordinates. Kernel K1 (`_kernels/csrc/nn_payload.cu`) has two
-wrappers: `nn_payload_kernel`, the ICP matcher, and `nn_argmin_kernel`, the
-exact 1-NN distance and index. On a CUDA tensor a wrapper launches the
-kernel, on a CPU tensor it runs the plain version.
+modes, with a wrapper each: `nn_payload_kernel`, the ICP matcher, and
+`nn_argmin_kernel`, the exact 1-NN distance and index. On a CUDA tensor a
+wrapper launches the kernel, on a CPU tensor it runs the plain version.
+
+The JAX module's names map so: a name without TPU technology is kept; a
+`*_pallas` wrapper becomes the `*_kernel` that launches a CUDA kernel, and
+an `*_xla` fallback the plain version of the bare name.
+
+| JAX (`aicp_mapping_tpu.ops.knn`) | here |
+|---|---|
+| `nn_argmin_pallas` | `nn_argmin_kernel` (K1, index mode) |
+| `nn_argmin_xla` | `nn_argmin` |
+| `nn_payload_pallas_split` | `nn_payload_kernel` (K1, payload mode) |
+| `nn_payload_pallas` (`tm`, `tn`, `packed`) | `nn_payload_tiled_kernel` (K1, payload mode) |
+| `nn_payload_xla` | `nn_payload` |
+| `nn_argmin` (Pallas where it can) | `aicp_mapping_tpu_torch.ops.nn_argmin` = `nn_argmin_kernel` |
+| `knn` | `knn` |
 
 `knn` is the exact top-k (normal estimation and region growing); the JAX
 package computes it in XLA, so it is plain PyTorch here on every device.
@@ -116,6 +130,29 @@ def nn_payload_kernel(queries: torch.Tensor, qmask: torch.Tensor,
     _kernels.check_status(status, "nn_payload")
     _kernels.count_launch("nn_payload")
     return dist, pout
+
+
+def nn_payload_tiled_kernel(queries: torch.Tensor, qmask: torch.Tensor,
+                            refs: torch.Tensor, rmask: torch.Tensor,
+                            payload: torch.Tensor, tm: int = 512,
+                            tn: int = 1024, packed: bool = True):
+    """JAX's `nn_payload_pallas` (replaces ops/knn.py:_nn_payload_kernel
+    and :_nn_payload_packed_kernel): 1-NN + payload by kernel K1 with the
+    TPU kernels' shape rules, M % tm == 0, N % tn == 0 and P % 8 == 0, or
+    it raises. Returns (dist2 (M,), payload (M, P)); a query with no valid
+    reference gets +BIG and a zero row, as the unpacked TPU kernel gives.
+
+    `packed` chose the TPU's packed-key kernel, whose distances are
+    floored to 13 mantissa bits; K1 has no packed key, so both values give
+    the exact f32 distance. CPU tensors run `nn_payload`; CUDA tensors
+    launch K1 or raise."""
+    del packed
+    M, N, P = queries.shape[0], refs.shape[0], payload.shape[-1]
+    if M % tm or N % tn or P % 8:
+        raise ValueError(f"nn_payload_tiled_kernel: M={M} N={N} P={P} must "
+                         f"be multiples of tm={tm}, tn={tn} and 8")
+    dist, pout = nn_payload_kernel(queries, qmask, refs, rmask, payload)
+    return dist, torch.where((dist < _BIG)[:, None], pout, 0.0)
 
 
 def _topk_keys(d: torch.Tensor) -> torch.Tensor:

@@ -43,13 +43,48 @@ def max_dist_filter(points, mask, origin, max_dist: float):
     return mask & (_dist2(points, origin) <= _sq_f32(max_dist).item())
 
 
+_M32 = 0xFFFFFFFF
+
+
+def _rotl32(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k0: int, k1: int, x0: torch.Tensor,
+                 x1: torch.Tensor):
+    """The Threefry-2x32 block cipher with 20 rounds (Salmon et al. 2011),
+    as `jax.random` runs it: 32-bit words held in int64 tensors, every sum
+    masked to 32 bits."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in rotations[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def jax_uniform(seed: int, n: int) -> torch.Tensor:
+    """`jax.random.uniform(jax.random.PRNGKey(seed), (n,))`, bit for bit
+    (CPU f32, 32-bit JAX): the key words are (0, seed & 0xFFFFFFFF),
+    counter i is the word pair (i >> 32, i & 0xFFFFFFFF), and the 23 high
+    bits of the two output words' XOR fill the mantissa of a float in
+    [1, 2), minus 1."""
+    i = torch.arange(n, dtype=torch.int64)
+    x0, x1 = threefry2x32(0, int(seed) & _M32, i >> 32, i & _M32)
+    bits = ((x0 ^ x1) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
 def random_sampling_filter(mask, prob: float, seed: int = 0):
     """Keep each valid point with probability `prob`, deterministic given
-    `seed` (a `torch.Generator` on the CPU; the draws are not those of the
-    JAX package's `jax.random`, only their distribution is)."""
-    gen = torch.Generator().manual_seed(int(seed))
-    u = torch.rand(mask.shape[0], generator=gen).to(mask.device)
-    return mask & (u < prob)
+    `seed`: the JAX package's draws, `jax_uniform(seed, n) < prob`."""
+    u = jax_uniform(seed, mask.shape[0]).to(mask.device)
+    return mask & (u < torch.tensor(prob, dtype=torch.float32).item())
 
 
 def max_density_filter(points, mask, cell_size: float):

@@ -25,7 +25,12 @@ launch counts set to 0 just before it and read just after:
 - the pair-registration CLI, `cli.main(["register", ...])`, on a
   60,000-point pair with a known perturbation (ICP by K5, the Hausdorff
   check by K1's index mode), and on an 8,192-point pair against the same
-  command on the CPU.
+  command on the CPU;
+- the public nearest-neighbour API: `ops.knn.nn_payload_tiled_kernel` (JAX's
+  `nn_payload_pallas`, K1) at 8,192 x 8,192, and `ops.banded_nn`'s
+  `nn_argmin_banded_prepared` (K5's index mode), `nn_payload_banded_sorted`
+  and `nn_payload_banded_resident` (K5) at 8,192 x 65,536, against exact
+  1-NN by the plain twins on the card.
 
 Each kernel's line also carries the least time the card could take for
 the same work (`bound_ms`: FP32 operations at 67 TFLOP/s or bytes at
@@ -38,6 +43,7 @@ Every phase asserts; the last line of standard output is
 nothing of JAX. Exits non-zero without a result when CUDA is unavailable.
 """
 import dataclasses
+import importlib
 import json
 import os
 import subprocess
@@ -56,7 +62,9 @@ TOL_CORRECTED_T = 0.05
 KERNELS = {
     "nn_payload": dict(
         source="aicp_mapping_tpu_torch/_kernels/csrc/nn_payload.cu",
-        replaces="aicp_mapping_tpu/ops/knn.py:322"),
+        replaces="aicp_mapping_tpu/ops/knn.py:322, "
+                 "aicp_mapping_tpu/ops/knn.py:218, "
+                 "aicp_mapping_tpu/ops/knn.py:265"),
     "nn_argmin": dict(
         source="aicp_mapping_tpu_torch/_kernels/csrc/nn_payload.cu",
         replaces="aicp_mapping_tpu/ops/knn.py:139"),
@@ -70,7 +78,12 @@ KERNELS = {
     "banded_nn_payload_stream": dict(
         source="aicp_mapping_tpu_torch/_kernels/csrc/banded_nn.cu",
         replaces="aicp_mapping_tpu/ops/banded_nn.py:397, "
-                 "aicp_mapping_tpu/ops/banded_nn.py:498"),
+                 "aicp_mapping_tpu/ops/banded_nn.py:498, "
+                 "aicp_mapping_tpu/ops/banded_nn.py:200, "
+                 "aicp_mapping_tpu/ops/banded_nn.py:293"),
+    "banded_nn_argmin": dict(
+        source="aicp_mapping_tpu_torch/_kernels/csrc/banded_nn.cu",
+        replaces="aicp_mapping_tpu/ops/banded_nn.py:57"),
 }
 GT_TOL = 0.06                     # m, tests/test_parallel.py:308
 # Golden-file tolerances of the risk stage (tests/test_golden.py): %, 0-100
@@ -86,6 +99,9 @@ PEAK_BYTES = 3.35e12
 OPS_PER_PAIR = 8
 # ... and per neighbour accumulated into the 10 moment sums
 OPS_PER_NEIGHBOUR = 10
+BIG = 3.4e38
+NN_API_CELL = 4.0     # m, the ICP's Morton cell (ICPConfig.nn_cell_size)
+NN_API_BAND = 16      # of 64 blocks: the auto band of 8,192 x 65,536
 
 
 def log(*args):
@@ -170,7 +186,8 @@ def moments_check(torch, name, a, b):
 def check_kernels(torch, results: dict) -> None:
     """Phase 3: each kernel against its plain twin on the card."""
     from aicp_mapping_tpu_torch.geometry import se3
-    from aicp_mapping_tpu_torch.ops import banded_nn, knn, normals
+    from aicp_mapping_tpu_torch.ops import banded_nn, normals
+    knn = importlib.import_module("aicp_mapping_tpu_torch.ops.knn")
 
     dev = "cuda"
     rng = np.random.default_rng(0)
@@ -301,7 +318,8 @@ def check_banded_kernels(torch, results: dict, scene) -> None:
     exact NN (K1)."""
     from aicp_mapping_tpu_torch import App, Cloud
     from aicp_mapping_tpu_torch.geometry import se3
-    from aicp_mapping_tpu_torch.ops import banded_nn, knn, normals
+    from aicp_mapping_tpu_torch.ops import banded_nn, normals
+    knn = importlib.import_module("aicp_mapping_tpu_torch.ops.knn")
     from aicp_mapping_tpu_torch.parallel import ShardedMapLocalizer
     from aicp_mapping_tpu_torch.registration.icp import banded_band
 
@@ -398,6 +416,176 @@ def check_banded_kernels(torch, results: dict, scene) -> None:
             r[f"bound_ms_{phase}_{n_ref}"] = b["bound_ms"]
             if (phase, n_ref) == ("fine", 131072):
                 r.update(ms=ms_k, plain_ms=plain, **b)
+
+
+def nn_api_scenes(torch) -> dict:
+    """The public NN API's inputs on the card, at the repo's own drives of
+    it: tools/nn_split_check.py's scene for `nn_payload_pallas` (8,192
+    queries against 8,192 points of a 40 m room 25 m out, P = 8) and
+    tools/banded_split_check.py's for the banded functions (8,192 readings
+    of a 65,536-point 30 m room under a small motion), its reference
+    prepared once by `banded_prepare`, with payload [x y z normal 0 0]."""
+    from aicp_mapping_tpu_torch.geometry import se3
+    from aicp_mapping_tpu_torch.ops import banded_nn
+    from aicp_mapping_tpu_torch.tools.synthetic import room_cloud
+
+    dev = "cuda"
+    raw = torch.as_tensor(room_cloud(n=9000, size=40.0, seed=5, noise=0.01)
+                          + np.float32(25.0), device=dev)
+    ones = torch.ones(8192, dtype=torch.bool, device=dev)
+    r = raw[200:8392].contiguous()
+    tiled = (raw[:8192].contiguous(), ones, r, ones, torch.cat(
+        [r, torch.zeros((8192, 5), device=dev)], 1).contiguous())
+    world = torch.as_tensor(room_cloud(n=66000, size=30.0, seed=11,
+                                       noise=0.01)[:65536], device=dev)
+    nrm = np.random.default_rng(11).normal(size=(65536, 3))
+    nrm = torch.as_tensor((nrm / np.linalg.norm(nrm, axis=1, keepdims=True))
+                          .astype(np.float32), device=dev)
+    pay = torch.cat([world, nrm, torch.zeros((65536, 2), device=dev)], 1)
+    T = se3.make_transform(
+        se3.so3_exp(torch.tensor([0.008, -0.012, 0.03], device=dev)),
+        torch.tensor([0.09, -0.07, 0.04], device=dev))
+    reading = se3.transform_points(T, world[::8][:8192]).contiguous()
+    rm = torch.ones(65536, dtype=torch.bool, device=dev)
+    origin = torch.minimum(reading.amin(0), world.amin(0))
+    prep = banded_nn.banded_prepare(world, rm, origin, NN_API_CELL)
+    qcodes, qperm = torch.sort(banded_nn.morton_codes(
+        reading, ones, origin, NN_API_CELL), stable=True)
+    pay_t = pay[prep[3]].T.contiguous()
+    starts = {band: banded_nn.banded_window_starts(
+        qcodes, prep[2], 64, band, 512, 1024) for band in (NN_API_BAND, 64)}
+    rs = prep[0].T.contiguous()
+    rpen = torch.where(prep[1][0] >= BIG, BIG, 0.0).contiguous()
+    return dict(tiled=tiled, world=world, rm=rm, pay=pay, reading=reading,
+                qm=ones, origin=origin, prep=prep, qperm=qperm,
+                qs=reading[qperm].contiguous(), pay_t=pay_t,
+                pay_s=pay_t.T.contiguous(), starts=starts, rs=rs, rpen=rpen,
+                blocks=banded_nn.banded_blocks(prep[0], prep[1], pay_t))
+
+
+def check_nn_api_kernels(torch, results: dict, s: dict) -> None:
+    """Phase 3, the public NN API's shapes: K5's index mode against its
+    plain twin at band 16 and 64 (every block) of 8,192 x 65,536, and the
+    time of each public function beside its kernel and plain twin."""
+    from aicp_mapping_tpu_torch.ops import banded_nn
+    knn = importlib.import_module("aicp_mapping_tpu_torch.ops.knn")
+
+    qs, rs, rpen = s["qs"], s["rs"], s["rpen"]
+    M, N = qs.shape[0], rs.shape[0]
+    r = results.setdefault("banded_nn_argmin", dict(max_abs_err=0.0))
+    for band in (NN_API_BAND, 64):
+        args = (qs, rs, rpen, s["starts"][band], band)
+        d_k, i_k = banded_nn.banded_nn_argmin_kernel(*args)
+        d_p, i_p = banded_nn.banded_nn_argmin(*args)
+        torch.cuda.synchronize()
+        frac = (i_k == i_p).float().mean().item()
+        err = (d_k - d_p).abs().max().item()
+        log(f"K5 index mode (#10) M={M} N={N} band={band}: identical "
+            f"indices {frac:.5f}, max|dd2| {err:.3g} m^2")
+        assert frac >= 0.997, frac
+        assert err <= 3e-3, err
+        assert bool((i_k >= 0).all())
+        ms = time_ms(torch, lambda: banded_nn.banded_nn_argmin_kernel(*args))
+        plain = time_ms(torch, lambda: banded_nn.banded_nn_argmin(*args))
+        b = bound(OPS_PER_PAIR * window_pairs(s["qm"], rpen == 0,
+                                              s["starts"][band], band),
+                  12 * M + 16 * N + 4 * s["starts"][band].numel() + 12 * M)
+        api = time_ms(torch, lambda: banded_nn.nn_argmin_banded_prepared(
+            s["reading"], s["qm"], *s["prep"], s["origin"], NN_API_CELL,
+            band=band))
+        log(f"K5 index mode (#10) M={M} N={N} band={band}: kernel "
+            f"{ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us, bound "
+            f"{b['bound_ms'] * 1e3:.1f} us ({b['bound_by']}); "
+            f"nn_argmin_banded_prepared {api * 1e3:.1f} us")
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        r.update({f"ms_band{band}": ms, f"plain_ms_band{band}": plain,
+                  f"bound_ms_band{band}": b["bound_ms"],
+                  f"api_ms_band{band}": api})
+        if band == NN_API_BAND:
+            r.update(ms=ms, plain_ms=plain, **b)
+
+    # #8: nn_payload_tiled_kernel is K1 plus a select
+    t = s["tiled"]
+    api = time_ms(torch, lambda: knn.nn_payload_tiled_kernel(*t))
+    ms = time_ms(torch, lambda: knn.nn_payload_kernel(*t))
+    plain = time_ms(torch, lambda: knn.nn_payload(*t))
+    log(f"#8 nn_payload_tiled_kernel 8192x8192 P=8: {api * 1e3:.1f} us "
+        f"(K1 {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us)")
+    results["nn_payload"].update(api_ms_tiled=api, ms_nn_api=ms,
+                                 plain_ms_nn_api=plain)
+
+    # #9 and #11: K5's payload mode after a layout conversion
+    args = (qs, rs, rpen, s["pay_s"], s["starts"][NN_API_BAND], NN_API_BAND)
+    ms = time_ms(torch,
+                 lambda: banded_nn.nn_payload_banded_stream_kernel(*args))
+    plain = time_ms(torch, lambda: banded_nn.nn_payload_banded(*args))
+    st = s["starts"][NN_API_BAND]
+    srt = time_ms(torch, lambda: banded_nn.nn_payload_banded_sorted(
+        qs, *s["prep"][:2], s["pay_t"], st, band=NN_API_BAND))
+    res = time_ms(torch, lambda: banded_nn.nn_payload_banded_resident(
+        qs, *s["blocks"], st, band=NN_API_BAND))
+    log(f"#11 nn_payload_banded_sorted / #9 nn_payload_banded_resident "
+        f"M={M} N={N} band={NN_API_BAND}: {srt * 1e3:.1f} / {res * 1e3:.1f}"
+        f" us (K5 {ms * 1e3:.1f} us, plain {plain * 1e3:.1f} us)")
+    results["banded_nn_payload_stream"].update(
+        api_ms_sorted=srt, api_ms_resident=res, ms_nn_api=ms,
+        plain_ms_nn_api=plain)
+
+
+def run_nn_api(torch, s: dict) -> None:
+    """The public NN API on the card, once per function, against the plain
+    twins on the card: `nn_payload_tiled_kernel` (packed and not: both the
+    exact distance) against `nn_payload`; `nn_argmin_banded_prepared` at
+    band 16 (recall of the exact 1-NN, never nearer) and at every block
+    (the exact 1-NN); `nn_payload_banded_sorted` and `_resident` (equal to
+    each other, recall of the exact payload rows)."""
+    from aicp_mapping_tpu_torch.ops import banded_nn
+    knn = importlib.import_module("aicp_mapping_tpu_torch.ops.knn")
+
+    t = s["tiled"]
+    d_p, p_p = knn.nn_payload(*t)
+    outs = [knn.nn_payload_tiled_kernel(*t, packed=p) for p in (True, False)]
+    for (d, p), packed in zip(outs, (True, False)):
+        torch.cuda.synchronize()
+        assert d.shape == (8192,) and p.shape == (8192, 8)
+        assert bool(torch.isfinite(d).all()) and bool((d < BIG).all())
+        frac = (p == p_p).all(1).float().mean().item()
+        err = (d - d_p).abs().max().item()
+        log(f"nn api: nn_payload_tiled_kernel(packed={packed}) 8192x8192: "
+            f"identical rows {frac:.5f}, max|dd2| {err:.3g} m^2, mean d2 "
+            f"{d.mean().item():.4g} m^2")
+        assert frac >= 0.997 and err <= 3e-3, (frac, err)
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+
+    reading, qm, world, rm = s["reading"], s["qm"], s["world"], s["rm"]
+    d_x, i_x = knn.nn_argmin(reading, qm, world, rm)
+    for band in (NN_API_BAND, 64):
+        d, i = banded_nn.nn_argmin_banded_prepared(
+            reading, qm, *s["prep"], s["origin"], NN_API_CELL, band=band)
+        torch.cuda.synchronize()
+        assert d.shape == (8192,) and i.dtype == torch.int64
+        exact = (i == i_x).float().mean().item()
+        log(f"nn api: nn_argmin_banded_prepared band={band} of 64: exact-NN "
+            f"share {exact:.5f}, mean d2 {d.mean().item():.4g} m^2 (exact "
+            f"{d_x.mean().item():.4g})")
+        assert bool((d >= d_x - 1e-6).all()) and bool((d < BIG).all())
+        assert exact >= (0.997 if band == 64 else 0.98), exact
+        if band == 64:
+            assert (d - d_x).abs().max().item() <= 3e-3
+
+    st = s["starts"][NN_API_BAND]
+    d_s, p_s = banded_nn.nn_payload_banded_sorted(
+        s["qs"], *s["prep"][:2], s["pay_t"], st, band=NN_API_BAND)
+    d_r, p_r = banded_nn.nn_payload_banded_resident(
+        s["qs"], *s["blocks"], st, band=NN_API_BAND)
+    torch.cuda.synchronize()
+    assert torch.equal(d_s, d_r) and torch.equal(p_s, p_r)
+    want = s["pay"][i_x[s["qperm"]]]
+    exact = (p_s == want).all(1).float().mean().item()
+    log(f"nn api: nn_payload_banded_sorted / _resident band={NN_API_BAND}: "
+        f"equal; exact-NN share {exact:.5f}")
+    assert exact >= 0.98, exact
+    assert bool((d_s >= d_x[s["qperm"]] - 1e-6).all())
 
 
 def frame_lines_agree(got, want, what: str) -> None:
@@ -666,7 +854,7 @@ def run_register(torch) -> None:
 
     from aicp_mapping_tpu_torch import Cloud
     from aicp_mapping_tpu_torch.io import write_pcd
-    from aicp_mapping_tpu_torch.ops import knn
+    knn = importlib.import_module("aicp_mapping_tpu_torch.ops.knn")
     from aicp_mapping_tpu_torch.ops.quantile import masked_quantile
 
     center = np.float32([45.0, -38.0, 1.5])
@@ -875,10 +1063,12 @@ def main() -> int:
     # 3. each kernel against its plain twin
     results: dict = {}
     scene = cells().map_scene()
+    nn = nn_api_scenes(torch)
     check_kernels(torch, results)
     check_banded_kernels(torch, results, scene)
+    check_nn_api_kernels(torch, results, nn)
 
-    # 4-10. the main paths, each with its own launch counts
+    # 4-11. the main paths, each with its own launch counts
     bench_ms = {}
     paths = [
         drive("frame", lambda: bench_ms.update(
@@ -898,12 +1088,14 @@ def main() -> int:
             ("nn_payload", "banded_moments")),
         drive("register", lambda: run_register(torch),
               ("nn_argmin", "banded_nn_payload_stream", "nn_payload")),
+        drive("nn api", lambda: run_nn_api(torch, nn),
+              ("nn_payload", "banded_nn_payload_stream", "banded_nn_argmin")),
     ]
     log(f"bench operating point on the card: {bench_ms['off']:.2f} ms/frame"
         f" without failure prediction, {bench_ms['on']:.2f} with it")
     counts = {k: sum(c[k] for c in paths) for k in KERNELS}
 
-    # 11. the main paths went through every kernel
+    # 12. the main paths went through every kernel
     log(f"launches on all paths: {counts}")
     assert all(counts[k] > 0 for k in KERNELS), counts
 

@@ -3,6 +3,8 @@ with the JAX package: `banded_prepare_payload`, and the resident and
 streaming bf16 split kernels, both of which K5 replaces, run in Pallas
 interpret mode — the streaming one is tested nowhere else against an
 independent version."""
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -11,9 +13,10 @@ import torch
 from aicp_mapping_tpu.ops import banded_nn as jband
 from aicp_mapping_tpu.tools.synthetic import room_cloud
 from aicp_mapping_tpu_torch import _kernels
-from aicp_mapping_tpu_torch.ops import banded_nn, knn
+from aicp_mapping_tpu_torch.ops import banded_nn
 
 torch.set_num_threads(1)
+knn = importlib.import_module("aicp_mapping_tpu_torch.ops.knn")
 BIG = np.float32(3.4e38)
 N, M, CELL = 8192, 1024, 2.0
 

@@ -66,10 +66,13 @@ def test_register_matches_jax(pair, capsys, tmp_path):
     assert np.abs(aligned.mean(0) - ref.mean(0)).max() < 0.02
 
 
-def test_register_with_a_named_chain_matches_jax(pair, capsys):
-    """A chain without random sampling (the CPU's draws are not JAX's)."""
+@pytest.mark.parametrize("chain", ["icp_3d_trimmed.yaml",
+                                   "besl92_pt2point.yaml"])
+def test_register_with_a_named_chain_matches_jax(pair, capsys, chain):
+    """Named chains, random sampling included (besl92_pt2point keeps 5 % of
+    each cloud by JAX's own draws)."""
     argv = ["register", *pair, "--icp-config",
-            os.path.join(ROOT, "configs", "icp", "icp_3d_trimmed.yaml")]
+            os.path.join(ROOT, "configs", "icp", chain)]
     want = _run(jcli.main, argv, capsys)
     got = _run(cli.main, argv + ["--device", "cpu"], capsys)
     assert got["trim_ratio"] == want["trim_ratio"]

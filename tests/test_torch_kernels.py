@@ -9,6 +9,7 @@ no JAX they run with
 (`--noconftest` because tests/conftest.py configures JAX). The unmarked
 tests check the kernel library's bindings and run everywhere.
 """
+import importlib
 import re
 
 import numpy as np
@@ -16,11 +17,12 @@ import pytest
 import torch
 
 from aicp_mapping_tpu_torch import _kernels
-from aicp_mapping_tpu_torch.ops import banded_nn, knn, normals
+from aicp_mapping_tpu_torch.ops import banded_nn, normals
 from aicp_mapping_tpu_torch.ops.segmentation import moments_for
 from aicp_mapping_tpu_torch.tools.synthetic import room_cloud
 
 torch.set_num_threads(1)
+knn = importlib.import_module("aicp_mapping_tpu_torch.ops.knn")
 
 
 @pytest.fixture
@@ -192,6 +194,79 @@ def test_banded_nn_kernels_find_nothing_in_a_dead_window(cuda):
                                                      starts, 8)
     torch.cuda.synchronize()
     assert bool((d == 3.4e38).all()) and bool((p == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,band", [(8192, 65536, 16), (8192, 65536, 64),
+                                      (1024, 8192, 8)])
+def test_banded_nn_argmin_kernel_matches_plain(cuda, M, N, band):
+    """K5's index mode (Q2 #10) against its plain twin: >= 99.7 %
+    identical indices (in fact all: every operation is rounded alike),
+    |d2| within 3e-3 m^2; -1 and +BIG in a window of masked rows."""
+    q, codes, rs, rpen, rcodes, pay = _banded_scene(cuda, M, N)
+    starts = banded_nn.banded_window_starts(codes, rcodes, N // 1024, band,
+                                            512, 1024)
+    args = (q, rs, rpen, starts, band)
+    before = _kernels.launch_counts()["banded_nn_argmin"]
+    d5, i5 = banded_nn.banded_nn_argmin_kernel(*args)
+    dp, ip = banded_nn.banded_nn_argmin(*args)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["banded_nn_argmin"] == before + 1
+    assert i5.dtype == torch.int64
+    assert (i5 == ip).float().mean().item() >= 0.997
+    assert (d5 - dp).abs().max().item() <= 3e-3
+    # the index mode finds the payload mode's winners
+    _, p5 = banded_nn.nn_payload_banded_stream_kernel(q, rs, rpen, pay,
+                                                      starts, band)
+    assert bool((pay[i5] == p5).all())
+    dead = torch.full_like(rpen, 3.4e38)
+    d, i = banded_nn.banded_nn_argmin_kernel(q, rs, dead, starts, band)
+    torch.cuda.synchronize()
+    assert bool((d == 3.4e38).all()) and bool((i == -1).all())
+
+
+@pytest.mark.cuda
+def test_public_nn_api_launches_the_kernels(cuda):
+    """The ported public NN functions on CUDA tensors launch K1 (#8) and
+    K5 (#9-#11), and give what the same functions give on the CPU."""
+    M, N = 1024, 8192
+    q, codes, rs, rpen, rcodes, pay = _banded_scene(cuda, M, N)
+    qm = torch.arange(M, device=cuda) % 9 != 0
+    rm = rpen == 0
+    before = _kernels.launch_counts()
+    got = {
+        "tiled": knn.nn_payload_tiled_kernel(q, qm, rs, rm, pay),
+        "argmin": banded_nn.nn_argmin_banded(q, qm, rs, rm, band=4),
+    }
+    rt, rsq = rs.T.contiguous(), torch.where(rm, (rs * rs).sum(1), 3.4e38)[
+        None]
+    starts = banded_nn.banded_window_starts(codes, rcodes, N // 1024, 4,
+                                            512, 1024)
+    pay_t = pay.T.contiguous()
+    got["sorted"] = banded_nn.nn_payload_banded_sorted(q, rt, rsq, pay_t,
+                                                       starts, band=4)
+    got["resident"] = banded_nn.nn_payload_banded_resident(
+        q, *banded_nn.banded_blocks(rt, rsq, pay_t), starts, band=4)
+    torch.cuda.synchronize()
+    after = _kernels.launch_counts()
+    assert after["nn_payload"] == before["nn_payload"] + 1
+    assert after["banded_nn_argmin"] == before["banded_nn_argmin"] + 1
+    assert after["banded_nn_payload_stream"] == \
+        before["banded_nn_payload_stream"] + 2
+    cpu = {
+        "tiled": knn.nn_payload_tiled_kernel(q.cpu(), qm.cpu(), rs.cpu(),
+                                             rm.cpu(), pay.cpu()),
+        "argmin": banded_nn.nn_argmin_banded(q.cpu(), qm.cpu(), rs.cpu(),
+                                             rm.cpu(), band=4),
+        "sorted": banded_nn.nn_payload_banded_sorted(
+            q.cpu(), rt.cpu(), rsq.cpu(), pay_t.cpu(), starts.cpu(), band=4),
+    }
+    cpu["resident"] = cpu["sorted"]
+    for key, (d, v) in got.items():
+        dc, vc = cpu[key]
+        assert (d.cpu() - dc).abs().max().item() <= 3e-3, key
+        same = (v.cpu() == vc) if v.ndim == 1 else (v.cpu() == vc).all(1)
+        assert same.float().mean().item() >= 0.997, key
 
 
 @pytest.mark.cuda

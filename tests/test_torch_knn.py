@@ -1,6 +1,8 @@
 """Parity of the port's nearest-neighbour search (plain twin of kernel K1)
 with the JAX package's XLA path and its Pallas split kernel (interpret
 mode), and the K1 wrapper's device rules."""
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -8,9 +10,9 @@ import torch
 
 from aicp_mapping_tpu.ops.knn import nn_payload_pallas_split, nn_payload_xla
 from aicp_mapping_tpu_torch import _kernels
-from aicp_mapping_tpu_torch.ops import knn
 
 torch.set_num_threads(1)
+knn = importlib.import_module("aicp_mapping_tpu_torch.ops.knn")
 
 
 def _inputs(seed=3, M=512, N=1024, offset=0.0):

@@ -4,6 +4,7 @@ with `convert`, and the port's import and device rules."""
 import ast
 import dataclasses
 import glob
+import importlib
 import os
 import subprocess
 import sys
@@ -22,12 +23,13 @@ from aicp_mapping_tpu.pipeline.sequence import \
 from aicp_mapping_tpu_torch import (AlignedCloud, App, Cloud,
                                     PipelineConfig, _kernels, convert,
                                     load_yaml_config)
-from aicp_mapping_tpu_torch.ops import banded_nn, knn
+from aicp_mapping_tpu_torch.ops import banded_nn
 from aicp_mapping_tpu_torch.pipeline import fused
 from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
 from test_golden import TOLERANCES, _compare, _load_golden, _result_lines
 
 torch.set_num_threads(1)
+knn = importlib.import_module("aicp_mapping_tpu_torch.ops.knn")
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 

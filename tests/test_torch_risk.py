@@ -213,9 +213,21 @@ def test_load_label_file_matches_jax():
         np.testing.assert_array_equal(a, b)
 
 
+@pytest.mark.parametrize("n", [1, 7, 4096, 65536])
+@pytest.mark.parametrize("seed", [0, 4, 12345])
+def test_jax_uniform_draws_bit_for_bit(seed, n):
+    """`jax_uniform` is `jax.random.uniform(PRNGKey(seed), (n,))` to the
+    bit (threefry2x32, the random-sampling filter's draws)."""
+    import jax
+
+    want = np.asarray(jax.random.uniform(jax.random.PRNGKey(seed), (n,)))
+    got = tchain.jax_uniform(seed, n).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
 def test_chain_filters_match_jax():
-    """The deterministic filters are identical to JAX's; the random one
-    keeps a share within 4 sigma of its binomial."""
+    """Every filter, the random one included, keeps exactly JAX's points."""
     p, m = _room(8, n=4096, offset=(1.0, 2.0, 0.0))
     origin = np.float32([0.5, 1.0, 0.3])
     for cfg in (jchain.ChainFilterConfig(min_dist=2.0),
@@ -231,11 +243,15 @@ def test_chain_filters_match_jax():
         assert 0 < got.sum() < m.sum()
     prob = 0.3
     kept = tchain.random_sampling_filter(T(m), prob, seed=4).numpy()
-    n = m.sum()
-    assert not kept[~m].any()
-    assert abs(kept.sum() - prob * n) <= 4 * np.sqrt(n * prob * (1 - prob))
     np.testing.assert_array_equal(
-        kept, tchain.random_sampling_filter(T(m), prob, seed=4).numpy())
+        kept, np.asarray(jchain.random_sampling_filter(m, prob, seed=4)))
+    assert not kept[~m].any() and 0 < kept.sum() < m.sum()
+    cfg = jchain.ChainFilterConfig(min_dist=1.0, random_sampling_prob=0.05)
+    want = np.asarray(jchain.apply_chain_filters(p, m, origin, cfg, seed=7))
+    got = tchain.apply_chain_filters(
+        T(p), T(m), T(origin),
+        tchain.ChainFilterConfig(**dataclasses.asdict(cfg)), seed=7).numpy()
+    np.testing.assert_array_equal(got, want)
 
 
 def test_load_icp_chain_yaml_matches_jax():
