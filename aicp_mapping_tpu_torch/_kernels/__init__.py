@@ -14,7 +14,9 @@ was launched, and nowhere else, so a run can show that the main path
 really went through the kernels. K1 and K5 each have two modes, with a
 wrapper and a count each: K1's `nn_payload` (the ICP matcher) and
 `nn_argmin` (its index mode), K5's `banded_nn_payload_stream` and
-`banded_nn_argmin`.
+`banded_nn_argmin`. Their C entry points launch a scan and a merge pass
+(`csrc/common.cuh:merge_kernel`); a wrapper counts the pair as one launch
+of its kernel.
 """
 from __future__ import annotations
 
@@ -44,21 +46,26 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, qmask, m, r, rmask, n, payload, p, dist_out, payload_out, stream
-    "aicp_nn_payload": (_P, _P, _I, _P, _P, _I, _P, _I, _P, _P, _P),
-    # q, qmask, m, r, rmask, n, dist_out, idx_out, stream
-    "aicp_nn_argmin": (_P, _P, _I, _P, _P, _I, _P, _P, _P),
+    # q, qmask, m, r, rmask, n, payload, p, queries_per_thread, splits,
+    # split_len, keys, dist_out, payload_out, stream
+    "aicp_nn_payload": (_P, _P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _P, _P,
+                        _P, _P),
+    # q, qmask, m, r, rmask, n, queries_per_thread, splits, split_len, keys,
+    # dist_out, idx_out, stream
+    "aicp_nn_argmin": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
     # ps, ms, n, starts, tile_m, tile_n, band, rad2, out, stream
     "aicp_banded_moments": (_P, _P, _I, _P, _I, _I, _I, _F, _P, _P),
     # ps, ms, n, rad2, out, stream
     "aicp_radius_moments": (_P, _P, _I, _F, _P, _P),
     # q, m, rs, rpen, n, payload, p, starts, tile_m, tile_n, band,
-    # dist_out, payload_out, stream
-    "aicp_banded_nn_payload_stream": (_P, _I, _P, _P, _I, _P, _I, _P, _I, _I,
-                                      _I, _P, _P, _P),
-    # q, m, rs, rpen, n, starts, tile_m, tile_n, band, dist_out, idx_out,
+    # queries_per_thread, splits, split_len, keys, dist_out, payload_out,
     # stream
-    "aicp_banded_nn_argmin": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P),
+    "aicp_banded_nn_payload_stream": (_P, _I, _P, _P, _I, _P, _I, _P, _I, _I,
+                                      _I, _I, _I, _I, _P, _P, _P, _P),
+    # q, m, rs, rpen, n, starts, tile_m, tile_n, band, queries_per_thread,
+    # splits, split_len, keys, dist_out, idx_out, stream
+    "aicp_banded_nn_argmin": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                              _P, _P, _P, _P),
 }
 
 

@@ -7,11 +7,13 @@ points land in contiguous ranges; each tile of `tm` queries then scans only
 the `band` reference blocks of `tn` points that start at its window start
 (`banded_window_starts`), bracketed from the tile's codes.
 
-Kernel K5 (`_kernels/csrc/banded_nn.cu`) has two modes, each with a plain
-version and a wrapper that launches the kernel on a CUDA tensor (or
-raises) and runs the plain version on a CPU tensor. Both take the sorted
-reference as K5 reads it: rows `rs` (N, 3), a penalty `rpen` (N,) of 0 for
-a valid row and +BIG for a masked one, payload rows (N, P).
+Kernel K5 (`_kernels/csrc/banded_nn.cu`) cuts each window into slices
+scanned by blocks of their own (`banded_split_plan`) and merges the
+slices' first minima. It has two modes, each with a plain version and a
+wrapper that launches the kernel on a CUDA tensor (or raises) and runs the
+plain version on a CPU tensor. Both take the sorted reference as K5 reads
+it: rows `rs` (N, 3), a penalty `rpen` (N,) of 0 for a valid row and +BIG
+for a masked one, payload rows (N, P).
 
 - payload mode: `nn_payload_banded` (plain), `nn_payload_banded_stream_kernel`
   (wrapper; replaces the TPU's four banded payload kernels);
@@ -38,10 +40,12 @@ row's payload (ROADMAP Q3).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _kernels
-from .knn import sq_dists
+from .knn import THREADS, SplitPlan, split_window, sq_dists
 
 SENTINEL = 2**31 - 1
 _BIG = 3.4e38
@@ -146,6 +150,18 @@ def nn_payload_banded(q: torch.Tensor, rs: torch.Tensor,
     return d, torch.where((j >= 0)[:, None], pay_s[j.clamp(min=0)], 0.0)
 
 
+@functools.lru_cache(maxsize=None)
+def banded_split_plan(M: int, band: int, tm: int = 512,
+                      tn: int = 1024) -> SplitPlan:
+    """K5's grid for M sorted queries in tiles of `tm`, each against its
+    window of `band` blocks of `tn` references: blocks of `THREADS`
+    threads with 4 queries each (2 or 1 where `tm` is not a multiple of
+    512 or 256, so that a block lies inside one tile and shares its
+    window), the window cut by `ops.knn.split_window`."""
+    qpt = next(k for k in (4, 2, 1) if tm % (THREADS * k) == 0)
+    return SplitPlan(qpt, *split_window(M // (THREADS * qpt), band * tn))
+
+
 def _banded_args(name, q, rs, rpen, starts, band, tm, tn, *payload):
     """Check a banded kernel's arguments; returns the device type."""
     device_type = _kernels.check_tensors(name, q, rs, rpen, starts, *payload)
@@ -173,8 +189,9 @@ def nn_payload_banded_stream_kernel(q, rs, rpen, pay_s, starts, band: int,
     """Kernel K5 in payload mode (replaces ops/banded_nn.py:
     _banded_payload_split_kernel, :_banded_payload_split_stream_kernel,
     :_banded_payload_kernel and :_banded_payload_kernel_v2): banded 1-NN +
-    payload, the window's blocks double-buffered through shared memory by
-    `cp.async`.
+    payload, each window cut into slices by `banded_split_plan`, each slice
+    double-buffered through shared memory by `cp.async`, the slices' first
+    minima merged.
     Same contract as `nn_payload_banded`, at any band; needs M % tm == 0,
     tm % 128 == 0, N % tn == 0, tn % 4 == 0 and 1 <= band <= N / tn.
     CPU tensors run `nn_payload_banded`; CUDA tensors launch the kernel or
@@ -183,13 +200,15 @@ def nn_payload_banded_stream_kernel(q, rs, rpen, pay_s, starts, band: int,
     if _banded_args(name, q, rs, rpen, starts, band, tm, tn, pay_s) == "cpu":
         return nn_payload_banded(q, rs, rpen, pay_s, starts, band, tm, tn)
     M, P = q.shape[0], pay_s.shape[1]
+    plan = banded_split_plan(M, band, tm, tn)
     dist = torch.empty((M,), dtype=torch.float32, device=q.device)
     pout = torch.empty((M, P), dtype=torch.float32, device=q.device)
+    keys = torch.empty((plan.splits, M), dtype=torch.int64, device=q.device)
     with torch.cuda.device(q.device):
         status = _kernels.library().aicp_banded_nn_payload_stream(
             q.data_ptr(), M, rs.data_ptr(), rpen.data_ptr(), rs.shape[0],
-            pay_s.data_ptr(), P, starts.data_ptr(), tm, tn, band,
-            dist.data_ptr(), pout.data_ptr(),
+            pay_s.data_ptr(), P, starts.data_ptr(), tm, tn, band, *plan,
+            keys.data_ptr(), dist.data_ptr(), pout.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _kernels.check_status(status, name)
     _kernels.count_launch(name)
@@ -206,12 +225,15 @@ def banded_nn_argmin_kernel(q, rs, rpen, starts, band: int, tm: int = 512,
     if _banded_args(name, q, rs, rpen, starts, band, tm, tn) == "cpu":
         return banded_nn_argmin(q, rs, rpen, starts, band, tm, tn)
     M = q.shape[0]
+    plan = banded_split_plan(M, band, tm, tn)
     dist = torch.empty((M,), dtype=torch.float32, device=q.device)
     idx = torch.empty((M,), dtype=torch.int64, device=q.device)
+    keys = torch.empty((plan.splits, M), dtype=torch.int64, device=q.device)
     with torch.cuda.device(q.device):
         status = _kernels.library().aicp_banded_nn_argmin(
             q.data_ptr(), M, rs.data_ptr(), rpen.data_ptr(), rs.shape[0],
-            starts.data_ptr(), tm, tn, band, dist.data_ptr(), idx.data_ptr(),
+            starts.data_ptr(), tm, tn, band, *plan, keys.data_ptr(),
+            dist.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _kernels.check_status(status, name)
     _kernels.count_launch(name)

@@ -10,6 +10,8 @@ lidar coordinates. Kernel K1 (`_kernels/csrc/nn_payload.cu`) has two
 modes, with a wrapper each: `nn_payload_kernel`, the ICP matcher, and
 `nn_argmin_kernel`, the exact 1-NN distance and index. On a CUDA tensor a
 wrapper launches the kernel, on a CPU tensor it runs the plain version.
+K1 cuts the reference into slices scanned by blocks of their own
+(`nn_split_plan`, `split_window`) and merges the slices' first minima.
 
 The JAX module's names map so: a name without TPU technology is kept; a
 `*_pallas` wrapper becomes the `*_kernel` that launches a CUDA kernel, and
@@ -30,11 +32,57 @@ package computes it in XLA, so it is plain PyTorch here on every device.
 """
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from .. import _kernels
 
 _BIG = 3.4e38
+
+# The split plans of the 1-NN scans (K1 here, K5 in ops/banded_nn.py): the
+# H100's streaming multiprocessors, the scan blocks wanted on each, the
+# threads of a block (kThreads in _kernels/csrc/common.cuh) and the
+# shortest slice worth a block of its own.
+SMS = 132
+BLOCKS_PER_SM = 4
+THREADS = 128
+MIN_SPLIT = 128
+
+
+def split_window(query_blocks: int, width: int):
+    """(splits, split_len): cut a window of `width` references, scanned by
+    `query_blocks` blocks of queries, into `splits` contiguous slices of
+    `split_len` references, one block each. Enough slices that the grid
+    (query blocks x splits) gives every SM `BLOCKS_PER_SM` blocks (16 warps,
+    all resident at once), but none shorter than `MIN_SPLIT` references;
+    `split_len` is a multiple of 4, so each slice starts 16-byte aligned,
+    and no slice is empty: slice s is [s * split_len, min(width, (s + 1) *
+    split_len))."""
+    want = -(-SMS * BLOCKS_PER_SM // max(1, query_blocks))
+    splits = max(1, min(want, width // MIN_SPLIT))
+    split_len = -(-width // splits)
+    split_len += -split_len % 4
+    return -(-width // split_len), split_len
+
+
+class SplitPlan(NamedTuple):
+    """A 1-NN scan's grid, in the order its C entry point takes it: each
+    block holds THREADS * queries_per_thread queries and scans one of
+    `splits` slices of `split_len` references."""
+    queries_per_thread: int
+    splits: int
+    split_len: int
+
+
+@functools.lru_cache(maxsize=None)
+def nn_split_plan(M: int, N: int) -> SplitPlan:
+    """K1's grid for M queries against N references: blocks of `THREADS`
+    threads with 4 queries each, the whole reference cut by
+    `split_window`."""
+    qpt = 4
+    return SplitPlan(qpt, *split_window(-(-M // (THREADS * qpt)), N))
 
 
 def sq_dists(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -95,12 +143,16 @@ def nn_argmin_kernel(queries: torch.Tensor, qmask: torch.Tensor,
     if _check_nn("nn_argmin", queries, qmask, refs, rmask) == "cpu":
         return nn_argmin(queries, qmask, refs, rmask)
     M, N = queries.shape[0], refs.shape[0]
-    dist = torch.empty((M,), dtype=torch.float32, device=queries.device)
-    idx = torch.empty((M,), dtype=torch.int64, device=queries.device)
-    with torch.cuda.device(queries.device):
+    plan = nn_split_plan(M, N)
+    dev = queries.device
+    dist = torch.empty((M,), dtype=torch.float32, device=dev)
+    idx = torch.empty((M,), dtype=torch.int64, device=dev)
+    keys = torch.empty((plan.splits, M), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
         status = _kernels.library().aicp_nn_argmin(
             queries.data_ptr(), qmask.data_ptr(), M, refs.data_ptr(),
-            rmask.data_ptr(), N, dist.data_ptr(), idx.data_ptr(),
+            rmask.data_ptr(), N, *plan, keys.data_ptr(),
+            dist.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _kernels.check_status(status, "nn_argmin")
     _kernels.count_launch("nn_argmin")
@@ -119,14 +171,17 @@ def nn_payload_kernel(queries: torch.Tensor, qmask: torch.Tensor,
     if _check_nn("nn_payload", queries, qmask, refs, rmask, payload) == "cpu":
         return nn_payload(queries, qmask, refs, rmask, payload)
     M, N, P = queries.shape[0], refs.shape[0], payload.shape[1]
-    lib = _kernels.library()
-    dist = torch.empty((M,), dtype=torch.float32, device=queries.device)
-    pout = torch.empty((M, P), dtype=torch.float32, device=queries.device)
-    with torch.cuda.device(queries.device):
-        status = lib.aicp_nn_payload(
+    plan = nn_split_plan(M, N)
+    dev = queries.device
+    dist = torch.empty((M,), dtype=torch.float32, device=dev)
+    pout = torch.empty((M, P), dtype=torch.float32, device=dev)
+    keys = torch.empty((plan.splits, M), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        status = _kernels.library().aicp_nn_payload(
             queries.data_ptr(), qmask.data_ptr(), M, refs.data_ptr(),
-            rmask.data_ptr(), N, payload.data_ptr(), P, dist.data_ptr(),
-            pout.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            rmask.data_ptr(), N, payload.data_ptr(), P, *plan,
+            keys.data_ptr(), dist.data_ptr(), pout.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
     _kernels.check_status(status, "nn_payload")
     _kernels.count_launch("nn_payload")
     return dist, pout

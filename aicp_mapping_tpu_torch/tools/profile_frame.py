@@ -17,8 +17,10 @@ warm-up frames, then
    host read) and the port's kernel launches per frame;
 3. `--frames` calls under `torch.profiler`: device time per frame (CUDA
    kernels, copies and fills), the kernels that take most of it, and all
-   device kernel launches per frame. The busy share is that device time
-   over the mean wall time of step 1.
+   device kernel launches per frame, and the port's own kernels' device
+   ms and launches per frame by launch grid (K1's coarse and fine ICP
+   launches apart). The busy share is that device time over the mean wall
+   time of step 1.
 
 Prints one JSON object per row and writes them to `--out`. Exits non-zero
 without a result when CUDA is unavailable.
@@ -36,7 +38,8 @@ import time
 
 import numpy as np
 
-from .profile_localize import SCAN_ARGS, _device_events, bench_config
+from .profile_localize import (SCAN_ARGS, _device_events, _port_kernels,
+                               bench_config)
 
 WARMUP = 2
 CLASSIFIER = os.path.join(os.path.dirname(__file__), "..", "..", "data",
@@ -122,7 +125,7 @@ def profile_row(torch, items, frames: int, risk: bool) -> dict:
     if not events:
         raise RuntimeError("the profiler recorded no device events")
     by_name = collections.defaultdict(float)
-    for _, name, us in events:
+    for _, name, us, _ in events:
         by_name[name] += us
     device_ms = sum(by_name.values()) / 1e3 / frames
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -137,9 +140,10 @@ def profile_row(torch, items, frames: int, risk: bool) -> dict:
         device_ms_per_frame=device_ms,
         busy_share=device_ms / float(np.mean(wall)),
         kernel_launches_per_frame=sum(
-            1 for cat, _, _ in events if cat == "kernel") / frames,
+            1 for cat, _, _, _ in events if cat == "kernel") / frames,
         top_device_ms_per_frame={name[:80]: us / 1e3 / frames
-                                 for name, us in top})
+                                 for name, us in top},
+        port_kernels_per_frame=_port_kernels(events, frames))
 
 
 def main(argv=None) -> int:

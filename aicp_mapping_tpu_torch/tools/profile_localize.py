@@ -14,7 +14,8 @@ localizer localizes 2 warm-up frames, then
    and ICP (`point_to_plane_icp`);
 3. `--frames` calls under `torch.profiler`: device time per frame (CUDA
    kernels, copies and fills, from the exported trace), the kernels that
-   take most of it, and kernel launches per frame. The busy share is that
+   take most of it, kernel launches per frame, and the port's own kernels'
+   device ms and launches per frame by launch grid. The busy share is that
    device time over the mean wall time of step 1.
 
 Prints one JSON object per crop and writes them to `--out`. Exits non-zero
@@ -27,6 +28,7 @@ import collections
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -100,13 +102,31 @@ def _staged(torch, loc, stage_ms):
 
 
 def _device_events(trace_path):
-    """(category, name, µs) of every device event — kernel, copy or fill —
-    in an exported profiler trace."""
+    """(category, name, µs, grid) of every device event — kernel, copy or
+    fill — in an exported profiler trace; grid is a kernel's launch grid
+    (x, y, z), () for the others."""
     with open(trace_path) as f:
         events = json.load(f)["traceEvents"]
-    return [(e["cat"], e["name"], float(e["dur"])) for e in events
-            if e.get("ph") == "X"
+    return [(e["cat"], e["name"], float(e["dur"]),
+             tuple(e.get("args", {}).get("grid", ())))
+            for e in events if e.get("ph") == "X"
             and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def _port_kernels(events, frames: int) -> dict:
+    """Device ms and launches per frame of the port's own kernels (namespace
+    aicp), by kernel and launch grid: a 1-NN scan's grid is query blocks x
+    splits, so the coarse and fine ICP phases' launches show apart."""
+    rows = collections.defaultdict(lambda: [0.0, 0])
+    for cat, name, us, grid in events:
+        m = re.search(r"aicp::(?:\(anonymous namespace\)::)?(\w+(<[^>]*>)?)",
+                      name)
+        if cat == "kernel" and m:
+            row = rows[f"{m.group(1)} grid {'x'.join(map(str, grid))}"]
+            row[0] += us
+            row[1] += 1
+    return {k: dict(ms=ms / 1e3 / frames, launches=n / frames)
+            for k, (ms, n) in sorted(rows.items())}
 
 
 def profile_crop(torch, scene, out_capacity: int, frames: int) -> dict:
@@ -162,7 +182,7 @@ def profile_crop(torch, scene, out_capacity: int, frames: int) -> dict:
     if not events:
         raise RuntimeError("the profiler recorded no device events")
     by_name = collections.defaultdict(float)
-    for _, name, us in events:
+    for _, name, us, _ in events:
         by_name[name] += us
     device_ms = sum(by_name.values()) / 1e3 / frames
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -174,9 +194,10 @@ def profile_crop(torch, scene, out_capacity: int, frames: int) -> dict:
         device_ms_per_frame=device_ms,
         busy_share=device_ms / float(np.mean(wall)),
         kernel_launches_per_frame=sum(
-            1 for cat, _, _ in events if cat == "kernel") / frames,
+            1 for cat, _, _, _ in events if cat == "kernel") / frames,
         top_device_ms_per_frame={name[:80]: us / 1e3 / frames
-                                 for name, us in top})
+                                 for name, us in top},
+        port_kernels_per_frame=_port_kernels(events, frames))
 
 
 def main(argv=None) -> int:

@@ -225,6 +225,94 @@ def test_banded_nn_argmin_kernel_matches_plain(cuda, M, N, band):
     assert bool((d == 3.4e38).all()) and bool((i == -1).all())
 
 
+def _grid_points(rng, n):
+    """Points on a small integer grid: every squared distance is exact in
+    any rounding order, so K1 (which contracts into FMAs) and its twin
+    agree bit for bit, and many distances tie exactly."""
+    return rng.integers(0, 12, (n, 3)).astype(np.float32)
+
+
+def _assert_same(got, want):
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N", [(1024, 8192), (8192, 8192), (1000, 1777),
+                                 (1, 1), (513, 129), (77, 5001)])
+def test_nn_kernels_break_ties_across_splits(cuda, M, N):
+    """K1, both modes, row for row with its twins: the reference holds each
+    point twice, half a reference apart, so a query's nearest points tie
+    across splits (the lowest index must win); the first split is all
+    masked (its queries' winners lie in a later split); masked queries;
+    ragged M and N."""
+    rng = np.random.default_rng(M + N)
+    half = _grid_points(rng, N // 2)
+    r = np.concatenate([half, half, _grid_points(rng, N % 2)])
+    q = torch.as_tensor(_grid_points(rng, M), device=cuda)
+    r = torch.as_tensor(r, device=cuda)
+    plan = knn.nn_split_plan(M, N)
+    assert plan.splits >= 2 or N < 2 * knn.MIN_SPLIT
+    qm = torch.arange(M, device=cuda) % 5 != 4
+    rm = torch.arange(N, device=cuda) >= min(plan.split_len, N - 1)
+    pay = torch.cat([r, torch.as_tensor(rng.normal(size=(N, 5)).astype(
+        np.float32), device=cuda)], 1).contiguous()
+    _assert_same(knn.nn_argmin_kernel(q, qm, r, rm),
+                 knn.nn_argmin(q, qm, r, rm))
+    _assert_same(knn.nn_payload_kernel(q, qm, r, rm, pay),
+                 knn.nn_payload(q, qm, r, rm, pay))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N", [(1024, 8192), (1000, 1777)])
+def test_nn_kernels_on_an_all_masked_reference(cuda, M, N):
+    """K1 on a reference with no valid point: kBig and index 0 (payload row
+    0) for every valid query, as argmin gives; (kBig, 0) or a zero row for
+    a masked one."""
+    rng = np.random.default_rng(3)
+    q = torch.as_tensor(_grid_points(rng, M), device=cuda)
+    r = torch.as_tensor(_grid_points(rng, N), device=cuda)
+    qm = torch.arange(M, device=cuda) % 3 != 0
+    rm = torch.zeros(N, dtype=torch.bool, device=cuda)
+    pay = torch.cat([r, torch.ones((N, 5), device=cuda)], 1).contiguous()
+    d, i = knn.nn_argmin_kernel(q, qm, r, rm)
+    assert bool((d == 3.4e38).all()) and bool((i == 0).all())
+    _assert_same((d, i), knn.nn_argmin(q, qm, r, rm))
+    _assert_same(knn.nn_payload_kernel(q, qm, r, rm, pay),
+                 knn.nn_payload(q, qm, r, rm, pay))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,band,starts", [
+    (1024, 8192, 8, (0, 0)), (1024, 8192, 4, (1, 99)),
+    (8192, 65536, 16, (0, 3, 9, 20, 30, 40, 47, 60, 1, 2, 5, 8, 13, 21,
+                       34, 55))])
+def test_banded_nn_kernels_break_ties_across_splits(cuda, M, N, band,
+                                                    starts):
+    """K5, both modes, bit for bit with its twins: each point twice, half a
+    reference apart (ties across splits when the window holds both
+    copies), the reference's first slice and a whole block masked (slices
+    of only masked references), windows clipped at the end (starts past
+    N / 1024 - band)."""
+    rng = np.random.default_rng(M + band)
+    half = _grid_points(rng, N // 2)
+    rs = torch.as_tensor(np.concatenate([half, half]), device=cuda)
+    rpen = torch.zeros(N, device=cuda)
+    plan = banded_nn.banded_split_plan(M, band)
+    assert plan.splits >= 2
+    rpen[:plan.split_len] = 3.4e38
+    rpen[5 * 1024:6 * 1024] = 3.4e38
+    q = torch.as_tensor(_grid_points(rng, M), device=cuda)
+    pay = torch.cat([rs, torch.as_tensor(rng.normal(size=(N, 5)).astype(
+        np.float32), device=cuda)], 1).contiguous()
+    st = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    _assert_same(banded_nn.banded_nn_argmin_kernel(q, rs, rpen, st, band),
+                 banded_nn.banded_nn_argmin(q, rs, rpen, st, band))
+    _assert_same(
+        banded_nn.nn_payload_banded_stream_kernel(q, rs, rpen, pay, st, band),
+        banded_nn.nn_payload_banded(q, rs, rpen, pay, st, band))
+
+
 @pytest.mark.cuda
 def test_public_nn_api_launches_the_kernels(cuda):
     """The ported public NN functions on CUDA tensors launch K1 (#8) and
