@@ -14,9 +14,10 @@ was launched, and nowhere else, so a run can show that the main path
 really went through the kernels. K1 and K5 each have two modes, with a
 wrapper and a count each: K1's `nn_payload` (the ICP matcher) and
 `nn_argmin` (its index mode), K5's `banded_nn_payload_stream` and
-`banded_nn_argmin`. Their C entry points launch a scan and a merge pass
-(`csrc/common.cuh:merge_kernel`); a wrapper counts the pair as one launch
-of its kernel.
+`banded_nn_argmin`. Every C entry point launches a scan and a merge pass
+(`csrc/common.cuh:merge_kernel` for K1 and K5, `csrc/moments.cu:
+moments_merge_kernel` for K2 and K3); a wrapper counts the pair as one
+launch of its kernel.
 """
 from __future__ import annotations
 
@@ -53,10 +54,12 @@ _SIGNATURES = {
     # q, qmask, m, r, rmask, n, queries_per_thread, splits, split_len, keys,
     # dist_out, idx_out, stream
     "aicp_nn_argmin": (_P, _P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P),
-    # ps, ms, n, starts, tile_m, tile_n, band, rad2, out, stream
-    "aicp_banded_moments": (_P, _P, _I, _P, _I, _I, _I, _F, _P, _P),
-    # ps, ms, n, rad2, out, stream
-    "aicp_radius_moments": (_P, _P, _I, _F, _P, _P),
+    # ps, ms, n, codes, tile_m, tile_n, band, rad2, queries_per_thread,
+    # splits, part, out, stream
+    "aicp_banded_moments": (_P, _P, _I, _P, _I, _I, _I, _F, _I, _I, _P, _P,
+                            _P),
+    # ps, ms, n, rad2, queries_per_thread, splits, part, out, stream
+    "aicp_radius_moments": (_P, _P, _I, _F, _I, _I, _P, _P, _P),
     # q, m, rs, rpen, n, payload, p, starts, tile_m, tile_n, band,
     # queries_per_thread, splits, split_len, keys, dist_out, payload_out,
     # stream

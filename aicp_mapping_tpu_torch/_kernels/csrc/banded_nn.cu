@@ -68,20 +68,12 @@ namespace {
 // penalties; two stages.
 constexpr int kChunk = 256;
 
-// |q - r|^2, each operation rounded on its own, in the order of the plain
-// twin: ((dx*dx + dy*dy) + dz*dz) + pen. The "+ pen" is left out: it adds
-// +0 for a valid reference, which changes no distance (every one is >= +0),
-// and a masked one has its x set to +inf in shared memory instead, so its
+// The distance is common.cuh:sq_dist, the twin's rounding. The twin adds
+// the penalty last ("+ pen"); the kernel leaves that out: it adds +0 for a
+// valid reference, which changes no distance (every one is >= +0), and a
+// masked one has its x set to +inf in shared memory instead, so its
 // distance is +inf, which never beats the initial kBig, as kBig itself
 // never does in the twin.
-__device__ __forceinline__ float banded_dist(float qx, float qy, float qz,
-                                             float x, float y, float z) {
-  const float dx = __fsub_rn(qx, x);
-  const float dy = __fsub_rn(qy, y);
-  const float dz = __fsub_rn(qz, z);
-  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                   __fmul_rn(dz, dz));
-}
 
 // The window [begin, begin + width) of the query tile holding query
 // `first`, clipped to [0, n).
@@ -89,17 +81,6 @@ __device__ __forceinline__ int window_begin(const int* starts, int first,
                                             int tile_m, int tile_n, int width,
                                             int n) {
   return max(0, min(starts[first / tile_m] * tile_n, n - width));
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // Start the copies of references [base, base + len) into one stage — the
@@ -118,7 +99,7 @@ __device__ __forceinline__ void issue_chunk(float* sxyz, float* spen,
   float4* sp = reinterpret_cast<float4*>(spen);
   for (int t = threadIdx.x; t < len / 4; t += kThreads)
     cp_async16(sp + t, gp + t);
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  cp_async_commit();
 }
 
 template <int kQ>
@@ -179,8 +160,7 @@ banded_scan_kernel(const float* __restrict__ q, int m,
         const int j = base + t + u;
 #pragma unroll
         for (int k = 0; k < kQ; ++k) {
-          const float d =
-              banded_dist(qx[k], qy[k], qz[k], rx[u], ry[u], rz[u]);
+          const float d = sq_dist(qx[k], qy[k], qz[k], rx[u], ry[u], rz[u]);
           if (d < best[k]) {
             best[k] = d;
             best_j[k] = j;

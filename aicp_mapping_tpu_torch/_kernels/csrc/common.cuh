@@ -10,41 +10,56 @@ namespace aicp {
 // a lidar-scale |q|^2 to it stays finite (and rounds back to it exactly).
 constexpr float kBig = 3.4e38f;
 
-// Threads per block. The moment kernels (K2, K3) give each thread one
-// query; the 1-NN scans (K1, K5) give each thread 1, 2 or 4 queries
-// (register blocking) and cut the reference window of a block's queries
-// into slices scanned by blocks of their own (the split plans beside the
-// wrappers, ops/knn.py:nn_split_plan and ops/banded_nn.py:
-// banded_split_plan, mirror this number).
+// Threads per block. Every scan (K1, K2, K3, K5) gives each thread 1, 2 or
+// 4 queries (register blocking) and cuts the reference window of a block's
+// queries into slices scanned by blocks of their own (the split plans
+// beside the wrappers, ops/knn.py:nn_split_plan, ops/banded_nn.py:
+// banded_split_plan and ops/normals.py:moments_split_plan, mirror this
+// number).
 constexpr int kThreads = 128;
 
-// Reference points staged in shared memory per pass by K2 and K3, as
-// float4 (x, y, z, 0 or kBig): 16 KB.
-constexpr int kTile = 1024;
-
-// Stage references [base, base + len) of (n, 3) `r` into `tile`. A valid
-// reference becomes (x, y, z, 0), a masked one (0, 0, 0, kBig), so that
-// sq_dist() of a masked reference is |q|^2 + kBig, which rounds to exactly
-// kBig: it never beats a real reference and never passes a radius test.
-__device__ __forceinline__ void stage_refs(float4* tile, const float* r,
-                                           const unsigned char* rmask,
-                                           int base, int len) {
-  for (int t = threadIdx.x; t < len; t += blockDim.x) {
-    const int j = base + t;
-    tile[t] = rmask[j] ? make_float4(r[3 * j], r[3 * j + 1], r[3 * j + 2], 0.f)
-                       : make_float4(0.f, 0.f, 0.f, kBig);
-  }
+// |q - r|^2 in difference form, each operation rounded on its own, in the
+// order of the plain twins (ops/knn.py:sq_dists): ((dx*dx + dy*dy) + dz*dz)
+// with dx = qx - x. The intrinsics keep nvcc from contracting it into FMAs,
+// so K2, K3 and K5 compute their twins' distances bit for bit (a radius
+// test at the boundary, a tie, decides alike). The TPU kernels (and the XLA
+// fallbacks) expand |q|^2 - 2 q.r + |r|^2 to use the matrix unit; at 60 m
+// lidar coordinates that expansion carries ~1e-3 m^2 of rounding noise,
+// enough that two implementations disagree on ~1% of nearest neighbours
+// and on radius-boundary neighbours.
+__device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
+                                         float x, float y, float z) {
+  const float dx = __fsub_rn(qx, x);
+  const float dy = __fsub_rn(qy, y);
+  const float dz = __fsub_rn(qz, z);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
 }
 
-// Squared distance in difference form, exact to f32 rounding. The TPU
-// kernels (and the XLA fallbacks) expand |q|^2 - 2 q.r + |r|^2 to use the
-// matrix unit; at 60 m lidar coordinates that expansion carries ~1e-3 m^2
-// of rounding noise, enough that two implementations disagree on ~1% of
-// nearest neighbours and on radius-boundary neighbours.
-__device__ __forceinline__ float sq_dist(float qx, float qy, float qz,
-                                         float4 v) {
-  const float dx = qx - v.x, dy = qy - v.y, dz = qz - v.z;
-  return dx * dx + dy * dy + dz * dz + v.w;
+// Asynchronous copies from device to shared memory (cp.async): K5 copies
+// 16-byte pieces, K2 and K3 4-byte words (their points may lie at any
+// 4-byte offset). A thread closes its copies into a group with
+// cp_async_commit and waits for all of its groups with cp_async_wait_all.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // --- The split 1-NN scans (K1, K5) -------------------------------------

@@ -14,10 +14,10 @@
 // one-hot matmul payload selection exist to feed the MXU, and so does their
 // expanded distance |q|^2 - 2 q.r + |r|^2. On Hopper the distance is plain
 // FP32 arithmetic on the CUDA cores, in difference form, exact to f32
-// rounding (nn_dist below: the formula of common.cuh:sq_dist, with the
-// contraction the compiler gave it pinned by intrinsics, so that the loop's
-// shape cannot change its rounding; the distances are bit for bit those of
-// the one-thread-per-query K1 before it). No tensor cores: the expanded
+// rounding (nn_dist below: dx*dx + dy*dy + dz*dz with the contraction nvcc
+// gave it in the one-thread-per-query K1, pinned by intrinsics, so that the
+// loop's shape cannot change its rounding; the distances are bit for bit
+// those of that K1). No tensor cores: the expanded
 // distance, the only form a matrix unit computes, picks another neighbour
 // than the exact one for ~1% of lidar queries (ROADMAP Q3). The lowest
 // index wins an exact tie, as torch.argmin does.
@@ -53,8 +53,8 @@ constexpr int kChunk = 256;
 // Queries per thread (ops/knn.py:nn_split_plan gives this number).
 constexpr int kQueries = 4;
 
-// |q - r|^2, rounded as the compiler contracts common.cuh:sq_dist
-// (dx*dx + dy*dy + dz*dz + w): fma(dz, dz, fma(dx, dx, dy*dy)). The "+ w"
+// |q - r|^2, rounded as nvcc contracted dx*dx + dy*dy + dz*dz + w in the
+// first K1: fma(dz, dz, fma(dx, dx, dy*dy)). The "+ w"
 // is left out: it adds +0 for a valid reference, which changes no distance
 // (every one is >= +0), and a masked one is staged at +inf instead of
 // carrying kBig, so its distance is +inf (see load_chunk).

@@ -41,10 +41,11 @@ from .. import _kernels
 
 _BIG = 3.4e38
 
-# The split plans of the 1-NN scans (K1 here, K5 in ops/banded_nn.py): the
-# H100's streaming multiprocessors, the scan blocks wanted on each, the
-# threads of a block (kThreads in _kernels/csrc/common.cuh) and the
-# shortest slice worth a block of its own.
+# The split plans of the scans (K1 here, K5 in ops/banded_nn.py, K2 and K3
+# in ops/normals.py): the H100's streaming multiprocessors, the scan blocks
+# wanted on each, the threads of a block (kThreads in
+# _kernels/csrc/common.cuh) and the shortest slice worth a block of its
+# own.
 SMS = 132
 BLOCKS_PER_SM = 4
 THREADS = 128

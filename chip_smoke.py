@@ -34,7 +34,12 @@ launch counts set to 0 just before it and read just after:
 
 Phase 3 also holds K1 and K5 (both modes) to their twins on a scene of
 exact ties across the slices their split scans cut the window into, and
-logs each 1-NN launch's grid (query blocks x splits) beside its time.
+logs each scan's grid (query blocks x splits) beside its time. The
+moments kernels K2 and K3 must give their twins' neighbour counts at every
+point and the same bits on two launches; their lines also carry the
+share of rows equal to the twin's bits, the scan's and the merge's device
+times (`torch.profiler`) and the issue-rate floor of the scan's inner loop
+(`tools/kernel_sass.py`).
 Kernel times are device times by CUDA events: the stream sleeps before
 each timed loop, so that the host has queued every call first. Each
 kernel's line also carries the least time the card could take for the
@@ -48,6 +53,7 @@ Every phase asserts; the last line of standard output is
 nothing of JAX. Exits non-zero without a result when CUDA is unavailable.
 """
 import dataclasses
+import functools
 import importlib
 import json
 import os
@@ -150,8 +156,8 @@ def time_ms(torch, fn, reps=20, warmup=3) -> float:
 
 
 def grid(plan, M: int) -> str:
-    """A 1-NN scan's grid, query blocks x splits (of split_len references),
-    from its split plan."""
+    """A scan's grid, query blocks x splits (of split_len references), from
+    its split plan."""
     blocks = -(-M // (128 * plan.queries_per_thread))
     return f"grid {blocks} x {plan.splits} (slices of {plan.split_len})"
 
@@ -185,19 +191,100 @@ def lidar_room(n: int, seed: int) -> np.ndarray:
     return (pts + np.array([45.0, -38.0, 1.5], np.float32)).astype(np.float32)
 
 
-def moments_check(torch, name, a, b):
-    """Moments against their plain twin: counts within 2 for >= 99% of
-    points, moments within rtol 1e-4 / atol 1e-3 where the counts agree."""
-    diff = (a[:, 9] - b[:, 9]).abs()
-    frac = (diff <= 2).float().mean().item()
-    agree = diff == 0
-    torch.testing.assert_close(a[agree], b[agree], rtol=1e-4, atol=1e-3)
-    err = (a[agree] - b[agree]).abs().max().item()
-    log(f"{name}: counts within 2 for {frac:.5f}, moments max|d| "
-        f"{err:.3g} where counts agree ({agree.float().mean().item():.5f}"
-        f"), mean count {b[:, 9].mean().item():.1f}")
-    assert frac >= 0.99, frac
-    return err
+def moments_check(torch, name, a, b, valid):
+    """Moments against their plain twin: the same neighbour count at every
+    point, moments within rtol 1e-4 / atol 1e-3 at every point (`valid` or
+    not: the sums are the same). Returns (max |difference| at the valid
+    points, the share of rows equal to the twin's to the bit)."""
+    bad = int((a[:, 9] != b[:, 9]).sum())
+    assert bad == 0, f"{name}: {bad} neighbour counts differ from the twin"
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+    err = (a[valid] - b[valid]).abs().max().item()
+    same = (a == b).all(1).float().mean().item()
+    log(f"{name}: neighbour counts equal to the twin's at every point, "
+        f"moments max|d| {err:.3g} at the valid points, rows equal to the "
+        f"twin's bits {same:.6f}, mean count {b[valid, 9].mean().item():.1f}")
+    return err, same
+
+
+@functools.lru_cache(maxsize=None)
+def moments_sass() -> tuple:
+    """(SASS instructions per pair of the moments scan's inner loop with 4
+    queries per thread, its issue rate in lane-instructions per second at
+    the card's maximum SM clock)."""
+    from aicp_mapping_tpu_torch import _kernels
+    from aicp_mapping_tpu_torch.tools import kernel_sass
+
+    _, clock = kernel_sass.sm_clock_ghz()
+    rows = [r for r in kernel_sass.analyse(str(_kernels.build()), clock)
+            if "moments_scan_kernelILi4E" in r["kernel"]]
+    assert len(rows) == 1, rows
+    return rows[0]["instructions_per_pair"], 132 * 4 * 32 * clock * 1e9
+
+
+def scan_and_merge_us(torch, fn, reps: int = 10) -> tuple:
+    """Device µs per call of the scan and of the merge that `fn` launches,
+    from a `torch.profiler` trace of `reps` calls."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        rows = cells()._port_kernels(cells()._device_events(path), reps)
+    scan = sum(v["ms"] for k, v in rows.items() if "scan" in k) * 1e3
+    merge = sum(v["ms"] for k, v in rows.items() if "merge" in k) * 1e3
+    assert scan > 0 and merge > 0, rows
+    return scan, merge
+
+
+def check_moments(torch, name, kernel, plain, args, plan, window: int,
+                  valid, ops: float, nbytes: float, plain_reps: int = 20):
+    """K2 or K3 at one shape: two launches equal to the bit, then against
+    the plain twin (`moments_check`); times of the kernel (and of its scan
+    and merge apart) and the twin; the bound and the issue-rate floor of
+    the n x `window` pairs the scan visits. Returns the kernel's numbers."""
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernel(*args)), f"{name}: launches differ"
+    err, same = moments_check(torch, name, got, plain(*args), valid)
+    from aicp_mapping_tpu_torch.ops.normals import MOMENTS_PIECE
+
+    n = valid.shape[0]
+    blocks = -(-n // (128 * plan.queries_per_thread))
+    grid_line = (f"grid {blocks} x {plan.splits}, pieces of {MOMENTS_PIECE}"
+                 f" dealt round-robin, <= {plan.split_len} references a "
+                 "block")
+    ms = time_ms(torch, lambda: kernel(*args))
+    plain_ms = time_ms(torch, lambda: plain(*args), reps=plain_reps,
+                       warmup=1)
+    scan, merge = scan_and_merge_us(torch, lambda: kernel(*args))
+    per_pair, rate = moments_sass()
+    floor_us = n * window * per_pair / rate * 1e6
+    b = bound(ops, nbytes)
+    log(f"{name}: kernel {ms * 1e3:.1f} us (scan {scan:.1f} + merge "
+        f"{merge:.1f} us profiled; {grid_line}), plain "
+        f"{plain_ms * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.1f} us "
+        f"({b['bound_by']}), issue-rate floor {floor_us:.1f} us "
+        f"({n} x {window} pairs x {per_pair:.2f} instructions)")
+    return dict(err=err, bit_equal_rows=same, ms=ms, plain_ms=plain_ms,
+                scan_us=scan, merge_us=merge, floor_us=floor_us, **b)
+
+
+def moment_numbers(k: dict, suffix: str = "") -> dict:
+    """`check_moments`' numbers as a kernel's JSON keys, with `suffix`."""
+    return {key + suffix: k[key] for key in (
+        "ms", "plain_ms", "bound_ms", "bit_equal_rows", "scan_us",
+        "merge_us", "floor_us")}
 
 
 def check_kernels(torch, results: dict) -> None:
@@ -289,24 +376,20 @@ def check_kernels(torch, results: dict) -> None:
     m = torch.arange(N, device=dev) < N - 384
     codes = banded_nn.morton_codes(p, m, p[m].amin(0), 2.0)
     codes_s, perm = torch.sort(codes, stable=True)
-    ps = p[perm].contiguous()
     ms = codes_s != banded_nn.SENTINEL
-    args = (ps, ms, codes_s, 0.4)
-    got = normals.sorted_radius_moments_kernel(*args)
-    err = moments_check(torch, f"K2 banded_moments N={N}", got,
-                        normals.sorted_radius_moments(*args))
+    args = (p[perm].contiguous(), ms, codes_s, 0.4)
     starts = banded_nn.banded_window_starts(codes_s, codes_s, N // 1024, 8,
                                             512, 1024)
-    k2_bound = bound(
+    nbrs = int(normals.sorted_radius_moments(*args)[ms, 9].sum().item())
+    k = check_moments(
+        torch, f"K2 banded_moments N={N}",
+        normals.sorted_radius_moments_kernel, normals.sorted_radius_moments,
+        args, normals.moments_split_plan(N, 8 * 1024, 512), 8 * 1024, ms,
         OPS_PER_PAIR * window_pairs(ms, ms, starts, 8)
-        + OPS_PER_NEIGHBOUR * int(got[ms, 9].sum().item()),
-        13 * N + 4 * starts.numel() + 40 * N)
-    ms_k = time_ms(torch, lambda: normals.sorted_radius_moments_kernel(*args))
-    plain = time_ms(torch, lambda: normals.sorted_radius_moments(*args))
-    log(f"K2 banded_moments N={N}: kernel {ms_k * 1e3:.1f} us, "
-        f"plain {plain * 1e3:.1f} us")
-    results["banded_moments"] = dict(max_abs_err=err, ms=ms_k,
-                                     plain_ms=plain, **k2_bound)
+        + OPS_PER_NEIGHBOUR * nbrs, 21 * N + 40 * N)
+    results["banded_moments"] = dict(
+        max_abs_err=k["err"], bound_by=k["bound_by"],
+        library_ms=k["library_ms"], **moment_numbers(k))
 
     # K3 at the golden scenario's 4,096 and at 8,192 points
     r = results.setdefault("radius_moments", dict(max_abs_err=0.0))
@@ -314,20 +397,19 @@ def check_kernels(torch, results: dict) -> None:
         p = torch.as_tensor(lidar_room(N, seed=4), device=dev)
         m = torch.arange(N, device=dev) < N - N // 16
         args = (p, m, 0.4)
-        got = normals.radius_moments_kernel(*args)
-        err = moments_check(torch, f"K3 radius_moments N={N}", got,
-                            normals.radius_moments(*args))
-        ms_k = time_ms(torch, lambda: normals.radius_moments_kernel(*args))
-        plain = time_ms(torch, lambda: normals.radius_moments(*args))
-        log(f"K3 radius_moments N={N}: kernel {ms_k * 1e3:.1f} us, "
-            f"plain {plain * 1e3:.1f} us")
-        r["max_abs_err"] = max(r["max_abs_err"], err)
+        nv = int(m.sum())
+        nbrs = int(normals.radius_moments(*args)[m, 9].sum().item())
+        k = check_moments(
+            torch, f"K3 radius_moments N={N}", normals.radius_moments_kernel,
+            normals.radius_moments, args, normals.moments_split_plan(N, N),
+            N, m,
+            OPS_PER_PAIR * nv * nv + OPS_PER_NEIGHBOUR * nbrs,
+            13 * N + 40 * N)
+        r["max_abs_err"] = max(r["max_abs_err"], k["err"])
+        r.update(moment_numbers(k, f"_{N}"))
         if N == 4096:
-            nv = int(m.sum())
-            r.update(ms=ms_k, plain_ms=plain, **bound(
-                OPS_PER_PAIR * nv * nv
-                + OPS_PER_NEIGHBOUR * int(got[m, 9].sum().item()),
-                13 * N + 40 * N))
+            r.update(bound_by=k["bound_by"], library_ms=k["library_ms"],
+                     **moment_numbers(k))
 
 
 def check_banded_kernels(torch, results: dict, scene) -> None:
@@ -352,24 +434,21 @@ def check_banded_kernels(torch, results: dict, scene) -> None:
     p, m = loc.map_points, loc.map_mask
     codes = banded_nn.morton_codes(p, m, p[m].amin(0), 2.0)
     cs, perm = torch.sort(codes, stable=True)
-    args = (p[perm].contiguous(), cs != banded_nn.SENTINEL, cs, 0.4)
+    valid = cs != banded_nn.SENTINEL
+    args = (p[perm].contiguous(), valid, cs, 0.4)
     N = p.shape[0]
-    got = normals.sorted_radius_moments_kernel(*args)
-    err = moments_check(torch, f"K2 banded_moments N={N}", got,
-                        normals.sorted_radius_moments(*args))
     starts = banded_nn.banded_window_starts(cs, cs, N // 1024, 8, 512, 1024)
-    b = bound(OPS_PER_PAIR * window_pairs(args[1], args[1], starts, 8)
-              + OPS_PER_NEIGHBOUR * int(got[args[1], 9].sum().item()),
-              13 * N + 4 * starts.numel() + 40 * N)
-    ms_k = time_ms(torch, lambda: normals.sorted_radius_moments_kernel(*args))
-    plain = time_ms(torch, lambda: normals.sorted_radius_moments(*args),
-                    reps=3, warmup=1)
-    log(f"K2 banded_moments N={N}: kernel {ms_k * 1e3:.1f} us, plain "
-        f"{plain * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.1f} us "
-        f"({b['bound_by']})")
+    nbrs = int(normals.sorted_radius_moments(*args)[valid, 9].sum().item())
+    k = check_moments(
+        torch, f"K2 banded_moments N={N}",
+        normals.sorted_radius_moments_kernel, normals.sorted_radius_moments,
+        args, normals.moments_split_plan(N, 8 * 1024, 512), 8 * 1024, valid,
+        OPS_PER_PAIR * window_pairs(valid, valid, starts, 8)
+        + OPS_PER_NEIGHBOUR * nbrs, 21 * N + 40 * N,
+        plain_reps=3)
     r = results["banded_moments"]
-    r.update(max_abs_err=max(r["max_abs_err"], err), ms_262144=ms_k,
-             plain_ms_262144=plain, bound_ms_262144=b["bound_ms"])
+    r.update(max_abs_err=max(r["max_abs_err"], k["err"]),
+             **moment_numbers(k, f"_{N}"))
 
     # queries: scan 0 placed in the map, prefiltered as the App filters a
     # reading (8,192 points), under a small motion (an ICP iterate)

@@ -107,21 +107,35 @@ def test_nn_argmin_kernel_matches_plain(cuda, M, N):
 
 
 def _assert_moments_agree(a, b):
-    diff = (a[:, 9] - b[:, 9]).abs()
-    assert (diff <= 2).float().mean().item() >= 0.99
-    same = diff == 0
-    torch.testing.assert_close(a[same], b[same], rtol=1e-4, atol=1e-3)
+    """K2 / K3 against their twins: the same neighbour count at every
+    point (the radius test rounds as the twin's does), moments within rtol
+    1e-4 / atol 1e-3 at every point (both sum in f64 and round once, so
+    nearly every row is equal to the bit)."""
+    assert torch.equal(a[:, 9], b[:, 9])
+    torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-3)
+
+
+def _launch_twice(fn, *args, **kw):
+    """A kernel's result, after checking that a second launch gives the
+    same bits (the merge adds the slices in a fixed order)."""
+    got = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fn(*args, **kw))
+    return got
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [4096, 8192, 1000])
+@pytest.mark.parametrize("N", [4096, 8192, 1000, 1777])
 def test_radius_moments_kernel_matches_plain(cuda, N):
-    """K3 on any N: neighbour counts within 2 for >= 99% of points,
-    moments within rtol 1e-4 / atol 1e-3 where the counts agree."""
+    """K3 on any N, ragged included: neighbour counts equal to the twin's
+    at every point, moments within rtol 1e-4 / atol 1e-3 everywhere, and
+    equal across two launches."""
     p = torch.as_tensor(_lidar_room(N, 3), device=cuda)
     m = torch.arange(N, device=cuda) < N - N // 16
-    _assert_moments_agree(normals.radius_moments_kernel(p, m, 0.4),
-                          normals.radius_moments(p, m, 0.4))
+    before = _kernels.launch_counts()["radius_moments"]
+    got = _launch_twice(normals.radius_moments_kernel, p, m, 0.4)
+    assert _kernels.launch_counts()["radius_moments"] == before + 2
+    _assert_moments_agree(got, normals.radius_moments(p, m, 0.4))
 
 
 @pytest.mark.cuda
@@ -138,6 +152,71 @@ def test_banded_moments_kernel_matches_plain(cuda):
     got = moments_for(*args)
     assert _kernels.launch_counts()["banded_moments"] == before + 1
     _assert_moments_agree(got, normals.sorted_radius_moments(*args))
+    assert torch.equal(got, moments_for(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,invalid", [(16384, 1536), (32768, 700)])
+def test_banded_moments_kernel_finds_the_window_starts(cuda, N, invalid):
+    """K2 finds each tile's window start itself: the same neighbours as
+    the twin, which takes them from `banded_window_starts`, with whole
+    tiles of invalid points at the back (their codes all SENTINEL) and
+    windows clipped at both ends of a 32-block cloud."""
+    p = torch.as_tensor(_lidar_room(N, 9), device=cuda)
+    m = torch.arange(N, device=cuda) < N - invalid
+    codes = banded_nn.morton_codes(p, m, p[m].amin(0), 2.0)
+    cs, perm = torch.sort(codes, stable=True)
+    starts = banded_nn.banded_window_starts(cs, cs, N // 1024, 8, 512, 1024)
+    last = N // 1024 - 8
+    assert bool((starts == 0).any()) and bool((starts == last).any())
+    args = (p[perm].contiguous(), cs != banded_nn.SENTINEL, cs, 0.4)
+    _assert_moments_agree(
+        _launch_twice(normals.sorted_radius_moments_kernel, *args),
+        normals.sorted_radius_moments(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,N,tm,radius", [
+    ("K3", 4096, None, 2.0), ("K3", 1777, None, 1.0),
+    ("K2", 16384, 512, 2.0), ("K2", 16384, 256, 1.0)])
+def test_moments_kernels_on_an_integer_grid(cuda, kernel, N, tm, radius):
+    """K2 and K3 on points of a small integer grid, where many pairs lie
+    exactly at the radius (d^2 == r^2, counted by `<=`) and many points
+    coincide: counts equal to the twin's at every point, moments within
+    the tolerance, two launches equal. Every piece that the first block of
+    a query block scans is masked (a block with only masked references;
+    K2: in the tiles whose window starts at 0), and a run of points (K2: a
+    whole 1024-block); K2 also at tm = 256, where a block holds 2 queries
+    per thread so that it stays inside one tile."""
+    rng = np.random.default_rng(N + int(radius))
+    p = torch.as_tensor(_grid_points(rng, N), device=cuda)
+    m = torch.ones(N, dtype=torch.bool, device=cuda)
+    first_block = (torch.arange(N, device=cuda) // normals.MOMENTS_PIECE
+                   % normals.moments_split_plan(
+                       N, N if kernel == "K3" else 8 * 1024, tm).splits == 0)
+    if kernel == "K3":
+        m[first_block] = False
+        m[512:768] = False
+        got = _launch_twice(normals.radius_moments_kernel, p, m, radius)
+        want = normals.radius_moments(p, m, radius)
+    else:
+        plan = normals.moments_split_plan(N, 8 * 1024, tm)
+        assert plan.queries_per_thread == (4 if tm == 512 else 2)
+        assert plan.splits >= 2
+        codes = banded_nn.morton_codes(p, m, p.amin(0), 2.0)
+        cs, perm = torch.sort(codes, stable=True)
+        ps, ms = p[perm].contiguous(), (cs != banded_nn.SENTINEL).clone()
+        starts = banded_nn.banded_window_starts(cs, cs, N // 1024, 8, tm,
+                                                1024)
+        assert bool((starts == 0).any())
+        ms[first_block] = False
+        ms[5 * 1024:6 * 1024] = False
+        args = (ps, ms, cs, radius)
+        got = _launch_twice(normals.sorted_radius_moments_kernel, *args,
+                            tm=tm)
+        want = normals.sorted_radius_moments(*args, tm=tm)
+    assert bool((want[:, 9] > 1).float().mean() > 0.5)   # real neighbours
+    _assert_moments_agree(got, want)
 
 
 def _banded_scene(dev, M, N, seed=5):
@@ -373,5 +452,6 @@ def test_banded_moments_kernel_beyond_64_blocks(cuda):
     want[perm] = normals.sorted_radius_moments(
         p[perm], cs != banded_nn.SENTINEL, cs, 0.4)
     _assert_moments_agree(got, want)
+    assert torch.equal(got, normals._radius_moments_banded(p, m, 0.4))
     n, _, _ = normals.radius_normals(p, m, 0.4)
     assert bool(torch.isfinite(n).all())

@@ -1,10 +1,12 @@
-"""The split plans of the 1-NN scans K1 and K5 (`ops.knn.nn_split_plan`,
-`ops.banded_nn.banded_split_plan`), and the split-and-merge rule itself,
-on the CPU.
+"""The split plans of the scans (`ops.knn.nn_split_plan` for K1 and K3,
+`ops.banded_nn.banded_split_plan` for K5 and K2), and the split-and-merge
+rules themselves, on the CPU.
 
-A plan cuts a window of references into contiguous slices, one scan block
-each; the merge takes the least (distance bits, index) key over the
-slices. The plans are pinned at the main paths' shapes, and the rule is
+A 1-NN plan cuts a window of references into contiguous slices, one scan
+block each, and the merge takes the least (distance bits, index) key over
+the slices; a moments plan deals the window to its blocks in pieces of 16
+references, round-robin, and the merge adds the blocks' f64 partial sums
+in block order. The plans are pinned at the main paths' shapes, and the rules are
 replayed here in PyTorch with the kernels' own staging (K1: a masked
 reference at +inf; K5: none found is (kBig, -1)) against the plain twins.
 """
@@ -14,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from aicp_mapping_tpu_torch.ops import banded_nn
+from aicp_mapping_tpu_torch.ops import banded_nn, normals
 from aicp_mapping_tpu_torch.registration.icp import banded_band
 
 knn = importlib.import_module("aicp_mapping_tpu_torch.ops.knn")
@@ -42,6 +44,26 @@ K5_PLANS = {
     (1024, 131072, 128): (4, 263, 500),
     (8192, 65536, 64): (4, 33, 1988),
 }
+
+# (kind, N, tm) -> (queries per thread, splits, references per block) of
+# the moments scans' plan: K2 (a tile tm, band 8 of 1024-point blocks) on the
+# prefilter's 16,384 points and the map's 262,144, and at tm = 256; K3 (the
+# whole cloud, tm None) at the golden scenario's 4,096, at 8,192 and
+# ragged.
+MOMENTS_PLANS = {
+    ("K2", 16384, 512): (4, 16, 512),
+    ("K2", 262144, 512): (4, 1, 8192),
+    ("K2", 16384, 256): (2, 8, 1024),
+    ("K3", 4096, None): (4, 32, 128),
+    ("K3", 8192, None): (4, 32, 256),
+    ("K3", 1000, None): (4, 7, 144),
+}
+L2_BYTES = 50 * 2**20
+
+
+def _moments_plan(kind, N, tm):
+    width = 8 * 1024 if kind == "K2" else N
+    return normals.moments_split_plan(N, width, tm), width
 
 
 def _slices(plan, width):
@@ -171,3 +193,95 @@ def test_split_merge_gives_the_first_minimum_k5(M, band, dead):
     dw, jw = banded_nn.banded_nn_argmin(q, rs, rpen, starts, band)
     assert torch.equal(d, dw) and torch.equal(j, jw)
     assert bool((j == -1).all()) == dead
+
+
+def _pieces(plan, width):
+    """The references block s of a moments plan scans, in its order: pieces
+    s, s + splits, ... of MOMENTS_PIECE references."""
+    P = normals.MOMENTS_PIECE
+    pieces = -(-width // P)
+    return [torch.cat([torch.arange(g * P, min(width, (g + 1) * P))
+                       for g in range(s, pieces, plan.splits)])
+            for s in range(plan.splits)]
+
+
+@pytest.mark.parametrize("kind,N,tm", list(MOMENTS_PLANS))
+def test_moments_split_plan_at_main_path_shapes(kind, N, tm):
+    """K2's and K3's plan, pinned at their shapes: every reference of the
+    window in exactly one block, no block with more than split_len (a
+    multiple of 16) or fewer than MIN_SPLIT of them (unless it is the only
+    one); as many blocks as fit the grid into one wave of 4 blocks per SM,
+    less what dealing whole pieces leaves empty (no more, unlike the 1-NN
+    plans); a K2 block inside one query tile (2
+    queries per thread at tm = 256); the (splits, N, 10) f64 scratch of
+    partial sums inside the 50 MB L2."""
+    plan, width = _moments_plan(kind, N, tm)
+    assert tuple(plan) == MOMENTS_PLANS[(kind, N, tm)]
+    refs = _pieces(plan, width)
+    assert torch.equal(torch.sort(torch.cat(refs)).values,
+                       torch.arange(width))
+    assert plan.split_len % normals.MOMENTS_PIECE == 0
+    assert max(len(r) for r in refs) == plan.split_len
+    assert plan.splits == 1 or min(len(r) for r in refs) >= knn.MIN_SPLIT
+    blocks = -(-N // (knn.THREADS * plan.queries_per_thread))
+    wave = knn.SMS * knn.BLOCKS_PER_SM
+    want = max(1, min(wave // blocks, width // knn.MIN_SPLIT))
+    pieces = -(-width // normals.MOMENTS_PIECE)
+    per_block = -(-pieces // want)
+    assert plan.split_len == per_block * normals.MOMENTS_PIECE
+    assert blocks * plan.splits <= max(wave, blocks)
+    if kind == "K2":
+        assert tm % (knn.THREADS * plan.queries_per_thread) == 0
+    assert plan.splits * N * 10 * 8 <= L2_BYTES
+    normals.moments_split_plan.cache_clear()
+    assert normals.moments_split_plan(N, width, tm) == plan
+
+
+def _split_moments(p, m, plan, window_of, width, radius):
+    """The moments rule, replayed: each block's f64 partial sums of the
+    valid neighbours' features among its pieces of the window
+    (`window_of`: per query tile, its window start and its queries), the
+    blocks added in block order, rounded to f32 once."""
+    F = normals._features(p, m)
+    rad2 = normals._rad2(radius)
+    total = None
+    for refs in _pieces(plan, width):
+        rows = []
+        for lo, q in window_of:
+            j = lo + refs
+            rows.append(normals._window_moments(q, p[j], m[j], F[j], rad2))
+        part = torch.cat(rows)
+        total = part if total is None else total + part
+    return total.float()
+
+
+@pytest.mark.parametrize("kind,N,tm", [("K3", 1000, None),
+                                       ("K3", 4096, None),
+                                       ("K2", 16384, 256)])
+def test_split_merge_gives_the_moments(kind, N, tm):
+    """The moments rule against the twins on integer-grid points (pairs
+    exactly at the radius, coincident points) with the first pieces masked:
+    counts equal, every value within 2 f32 ulps of the twin's, and nearly
+    every row equal to the bit (both sum in f64 and round once)."""
+    rng = np.random.default_rng(N)
+    p = _grid_points(rng, N)
+    m = torch.as_tensor(rng.random(N) > 0.1)
+    plan, width = _moments_plan(kind, N, tm)
+    m[:4 * normals.MOMENTS_PIECE] = False
+    if kind == "K3":
+        got = _split_moments(p, m, plan, [(0, p)], width, 2.0)
+        want = normals.radius_moments(p, m, 2.0)
+    else:
+        codes = banded_nn.morton_codes(p, m, p.amin(0), 2.0)
+        cs, perm = torch.sort(codes, stable=True)
+        p, m = p[perm].contiguous(), m[perm]
+        starts = banded_nn.banded_window_starts(cs, cs, N // 1024, 8, tm,
+                                                1024)
+        tiles = [(s * 1024, p[g * tm:(g + 1) * tm])
+                 for g, s in enumerate(starts.tolist())]
+        got = _split_moments(p, m, plan, tiles, width, 2.0)
+        want = normals.sorted_radius_moments(p, m, cs, 2.0, tm=tm)
+    assert torch.equal(got[:, 9], want[:, 9])
+    ulp = torch.abs(want).clamp(min=1e-30) * 2.0**-23
+    assert bool(((got - want).abs() <= 2 * ulp).all())
+    assert (got == want).all(1).float().mean().item() >= 0.99
