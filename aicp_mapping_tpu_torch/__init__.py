@@ -8,8 +8,11 @@ auto-tuned trimmed ICP -> gates), with failure prediction (FOV overlap,
 alignability, the risk classifier and its gate) when asked, runs end to end
 through `App(config).process_cloud(...)`; map-scale localization against a
 prior map through the App's map modes and `parallel.ShardedMapLocalizer`;
-one scan pair through `python -m aicp_mapping_tpu_torch register`. The
-entry points run on the card unless given `device="cpu"`. The TPU kernels
+one scan pair through `python -m aicp_mapping_tpu_torch register`; the SLAM
+back-end (loop closures, pose-graph optimization, plane BA) through
+`pipeline.mapper.PoseGraphMapper`, `python -m aicp_mapping_tpu_torch slam`
+and `eval.slam_accuracy`. The entry points run on the card unless given
+`device="cpu"`. The TPU kernels
 on those paths are hand-written CUDA C++ for sm_90a (see `_kernels`).
 
 This package imports torch and numpy only, never jax or the JAX package:

@@ -1,14 +1,22 @@
 """Command-line tools of the port.
 
     python -m aicp_mapping_tpu_torch register READING REFERENCE [--device cpu]
+    python -m aicp_mapping_tpu_torch slam [DIRECTORY] [--plane-ba] [--device cpu]
 
 register   register one reading/reference scan pair: octree overlap, kNN
            normals, FOV overlap, alignability, the risk classifier,
            auto-tuned ICP and the Hausdorff quality check, printed as JSON
            (the JAX package's `register`, the reference's aicp-registration
-           pair tool). Runs on the card unless `--device cpu` is given.
+           pair tool).
+slam       end-to-end SLAM over a recorded sequence directory or a
+           synthetic loop: AICP front-end -> overlap-ranked, ICP-verified
+           loop closures -> pose-graph optimization -> optional plane BA;
+           prints the JAX package's `slam` summary as JSON. The mesh-sharded
+           back-end (`--mesh-devices` > 1) and the pipelined front-end
+           (`--pipelined`) are not ported (ROADMAP Q1 #13, #8) and raise.
 
-The JAX package's other subcommands are not ported yet (ROADMAP Q1 #14).
+Both run on the card unless `--device cpu` is given. The JAX package's
+other subcommands are not ported yet (ROADMAP Q1 #14).
 """
 from __future__ import annotations
 
@@ -113,6 +121,74 @@ def _cmd_register(args) -> int:
     return 0
 
 
+def _cmd_slam(args) -> int:
+    from .eval.kitti import ate_rmse
+    from .io.pcd import write_pcd
+    from .io.poses import write_kitti_poses
+    from .pipeline.app import App
+    from .pipeline.config import PipelineConfig, load_yaml_config
+    from .pipeline.mapper import PoseGraphMapper
+    from .pipeline.sequence import SequenceRunner, synthetic_sequence
+
+    if args.mesh_devices > 1:
+        raise NotImplementedError(
+            "slam --mesh-devices > 1: the edge-sharded PGO over a device mesh "
+            "is ROADMAP Q1 #13")
+    if args.config:
+        cfg = load_yaml_config(args.config)
+    elif args.directory:
+        cfg = PipelineConfig()
+    else:
+        # synthetic demo loop: compact capacities, keyframe every 2 frames
+        cfg = PipelineConfig(
+            working_mode="debug", raw_capacity=8192,
+            downsample_capacity=4096, filtered_capacity=2048,
+            map_capacity=16384, min_cluster_size=30,
+            reference_update_frequency=2)
+    app = App(cfg, device=args.device)
+    runner = SequenceRunner(app, pipelined=args.pipelined)
+    gt = None
+    if args.directory:
+        results = runner.run_directory(args.directory)
+    else:
+        items, gt = synthetic_sequence(
+            n_frames=args.synthetic, n_points=6000, seed=args.seed,
+            yaw_rate_deg=360.0 / max(args.synthetic, 1), step=1.0)
+        results = runner.run_clouds(items)
+
+    mapper = PoseGraphMapper(
+        app, min_loop_overlap=args.min_loop_overlap,
+        min_keyframe_gap=args.min_keyframe_gap,
+        max_loop_distance=args.max_loop_distance)
+    kfs_pre = mapper.keyframes()
+    pre_poses = np.stack([k.pose for k in kfs_pre]) if kfs_pre else None
+    lcs = mapper.propose_loop_closures()
+    kfs = mapper.optimize(gn_iters=args.gn_iters)
+    if args.plane_ba:
+        kfs = mapper.run_plane_ba(gn_iters=args.ba_iters)
+
+    summary = {
+        "frames": len(results),
+        "accepted": sum(1 for r in results if r and r.accepted),
+        "keyframes": len(kfs),
+        "loop_closures": [
+            {"i": lc.i, "j": lc.j, "overlap": round(lc.overlap, 2),
+             "inlier_rms": round(lc.inlier_rms, 4)} for lc in lcs],
+    }
+    if gt is not None and kfs:
+        gt_k = np.stack([gt[min(k.index, len(gt) - 1)] for k in kfs])
+        summary["ate_pre_m"] = round(ate_rmse(gt_k, pre_poses), 4)
+        summary["ate_post_m"] = round(
+            ate_rmse(gt_k, np.stack([k.pose for k in kfs])), 4)
+    print(json.dumps(summary, indent=2))
+    if args.output_map:
+        write_pcd(args.output_map, app.aligned_map_np)
+    if args.output_poses and kfs:
+        write_kitti_poses(args.output_poses,
+                          np.stack([k.pose for k in kfs]))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="aicp_mapping_tpu_torch", description=__doc__,
@@ -133,6 +209,31 @@ def build_parser() -> argparse.ArgumentParser:
     r.add_argument("--device", default="cuda",
                    help="torch device (default: the card)")
     r.set_defaults(func=_cmd_register)
+
+    sl = sub.add_parser(
+        "slam", help="end-to-end SLAM: front-end + loop closures + PGO + BA")
+    sl.add_argument("directory", nargs="?",
+                    help="recorded sequence dir; omit for a synthetic loop")
+    sl.add_argument("--synthetic", type=int, default=12,
+                    help="synthetic loop length when no directory given")
+    sl.add_argument("--seed", type=int, default=2)
+    sl.add_argument("--config", help="AICP YAML config")
+    sl.add_argument("--pipelined", action="store_true",
+                    help="pipelined front-end (not ported: raises)")
+    sl.add_argument("--mesh-devices", type=int, default=1,
+                    help=">1: edge-sharded PGO (not ported: raises)")
+    sl.add_argument("--min-loop-overlap", type=float, default=30.0)
+    sl.add_argument("--min-keyframe-gap", type=int, default=2)
+    sl.add_argument("--max-loop-distance", type=float, default=15.0)
+    sl.add_argument("--gn-iters", type=int, default=8)
+    sl.add_argument("--plane-ba", action="store_true",
+                    help="refine with plane-landmark bundle adjustment")
+    sl.add_argument("--ba-iters", type=int, default=4)
+    sl.add_argument("--output-map", help="write the final map PCD")
+    sl.add_argument("--output-poses", help="write keyframe poses (KITTI)")
+    sl.add_argument("--device", default="cuda",
+                    help="torch device (default: the card)")
+    sl.set_defaults(func=_cmd_slam)
     return p
 
 

@@ -12,8 +12,10 @@ import torch
 
 from .classification.classifier import RiskClassifier, SVMModel
 from .cloud import AlignedCloud, Cloud
+from .parallel.ba import PlaneBA
 from .parallel.localizer import ShardedMapLocalizer
-from .pipeline.app import App
+from .parallel.posegraph import PoseGraph
+from .pipeline.app import App, check_device
 from .pipeline.config import PipelineConfig
 from .registration.icp import ICPConfig
 
@@ -31,6 +33,13 @@ def config_from_dict(d: dict) -> PipelineConfig:
 
 def _np(t):
     return None if t is None else t.cpu().numpy()
+
+
+def _arr(x) -> np.ndarray:
+    """A tensor of either package (torch or JAX) as numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 def app_state_to_numpy(app: App) -> dict:
@@ -133,3 +142,65 @@ def classifier_from_numpy(w, b, mean, std, threshold=0.5) -> RiskClassifier:
     clf.model = SVMModel(*(torch.as_tensor(np.asarray(a, np.float32))
                            for a in (w, b, mean, std)))
     return clf
+
+
+def _fields_to_numpy(obj, cls) -> dict:
+    return {f.name: _arr(getattr(obj, f.name))
+            for f in dataclasses.fields(cls)}
+
+
+def pose_graph_to_numpy(graph) -> dict:
+    """Either package's `PoseGraph` as numpy arrays (its field names)."""
+    return _fields_to_numpy(graph, PoseGraph)
+
+
+def pose_graph_from_numpy(poses, edges, measurements, weights, edge_mask,
+                          device="cuda") -> PoseGraph:
+    """The port's `PoseGraph` on `device` from numpy arrays (JAX's int32
+    edges become int64)."""
+    dev = check_device(device, "pose_graph_from_numpy")
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+    return PoseGraph(t(poses, torch.float32), t(edges, torch.int64),
+                     t(measurements, torch.float32),
+                     t(weights, torch.float32), t(edge_mask, torch.bool))
+
+
+def plane_ba_to_numpy(problem) -> dict:
+    """Either package's `PlaneBA` as numpy arrays (its field names)."""
+    return _fields_to_numpy(problem, PlaneBA)
+
+
+def plane_ba_from_numpy(poses, landmarks, obs_k, obs_l, obs_plane, obs_w,
+                        obs_mask, device="cuda") -> PlaneBA:
+    """The port's `PlaneBA` on `device` from numpy arrays."""
+    dev = check_device(device, "plane_ba_from_numpy")
+
+    def t(a, dtype):
+        return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
+
+    return PlaneBA(t(poses, torch.float32), t(landmarks, torch.float32),
+                   t(obs_k, torch.int64), t(obs_l, torch.int64),
+                   t(obs_plane, torch.float32), t(obs_w, torch.float32),
+                   t(obs_mask, torch.bool))
+
+
+def mapper_state_to_numpy(mapper) -> dict:
+    """Either package's `PoseGraphMapper` state as plain Python and numpy:
+    its keyframes (graph index, utime, pose, world-frame points and mask),
+    its loop closures (i, j, measurement, overlap, inlier rms, info) and
+    `last_ba_summary`."""
+    kfs = [dict(index=k.index, utime=int(k.utime),
+                pose=np.array(k.pose, np.float32),
+                points=_arr(k.cloud.points), mask=_arr(k.cloud.mask))
+           for k in mapper.keyframes()]
+    closures = [dict(i=lc.i, j=lc.j,
+                     measurement=np.array(lc.measurement, np.float32),
+                     overlap=float(lc.overlap),
+                     inlier_rms=float(lc.inlier_rms),
+                     info=None if lc.info is None else np.array(lc.info))
+                for lc in mapper.loop_closures]
+    return dict(keyframes=kfs, loop_closures=closures,
+                last_ba_summary=mapper.last_ba_summary)

@@ -64,6 +64,10 @@ def inverse(T: torch.Tensor) -> torch.Tensor:
                                             translation(T)))
 
 
+def compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    return A @ B
+
+
 def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Apply a (4, 4) transform to (..., 3) points."""
     return points @ rotation(T).T + translation(T)
@@ -178,3 +182,12 @@ def se3_log(T: torch.Tensor) -> torch.Tensor:
     Vinv = _eye3_like(K) - 0.5 * K + coef * (K @ K)
     v = torch.einsum("...ij,...j->...i", Vinv, translation(T))
     return torch.cat([v, w], dim=-1)
+
+
+def adjoint(T: torch.Tensor) -> torch.Tensor:
+    """Adjoint of SE(3): (..., 6, 6) acting on [v, w] twists."""
+    R = rotation(T)
+    tR = skew(translation(T)) @ R
+    top = torch.cat([R, tR], dim=-1)
+    bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
+    return torch.cat([top, bottom], dim=-2)

@@ -1,1 +1,8 @@
 from .pcd import read_cloud, read_pcd, viewpoint_to_pose, write_pcd  # noqa: F401
+from .poses import (  # noqa: F401
+    PoseWithTime,
+    read_kitti_poses,
+    read_pose_csv,
+    write_kitti_poses,
+    write_pose_csv,
+)

@@ -94,10 +94,20 @@ def sq_dists(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return dx * dx + dy * dy + dz * dz
 
 
+def _rows(queries: torch.Tensor, block) -> int:
+    """Query rows per distance block: 64 on the CPU, where the (rows, N)
+    temporaries then stay in cache, 512 on the card. Rows are
+    independent: the block changes no result."""
+    if block is not None:
+        return block
+    return 64 if queries.device.type == "cpu" else 512
+
+
 def nn_argmin(queries: torch.Tensor, qmask: torch.Tensor,
-              refs: torch.Tensor, rmask: torch.Tensor, block: int = 512):
+              refs: torch.Tensor, rmask: torch.Tensor, block=None):
     """1-NN: (dist2 (M,), index (M,) int64). Masked refs at +BIG, ties to
     the lowest index; masked queries get dist BIG and index 0."""
+    block = _rows(queries, block)
     dists, idxs = [], []
     for s in range(0, queries.shape[0], block):
         d = torch.where(rmask[None, :], sq_dists(queries[s:s + block], refs),
@@ -109,7 +119,7 @@ def nn_argmin(queries: torch.Tensor, qmask: torch.Tensor,
     return dist, torch.where(qmask, torch.cat(idxs), 0)
 
 
-def nn_payload(queries, qmask, refs, rmask, payload, block: int = 512):
+def nn_payload(queries, qmask, refs, rmask, payload, block=None):
     """1-NN with the winner's payload row: (dist2 (M,), payload (M, P));
     masked queries get a zero payload."""
     dist, idx = nn_argmin(queries, qmask, refs, rmask, block=block)

@@ -369,11 +369,13 @@ def estimate_normals(points: torch.Tensor, mask: torch.Tensor, k: int,
 def normals_from_neighbors(points: torch.Tensor, mask: torch.Tensor,
                            idx: torch.Tensor, viewpoint=None):
     """Normals + curvature from a neighbour index (N, k): the covariance of
-    each point's valid neighbours through `_normals_from_cov`."""
-    nbrs = points[idx]                                   # (N, k, 3)
-    w = (mask[idx] & mask[:, None]).to(points.dtype)[..., None]
+    each point's valid neighbours through `_normals_from_cov`. The sums
+    run in float64 and round to f32 once, so the card's reduction order
+    gives the CPU's covariance (and region growing the CPU's clusters)."""
+    nbrs = points[idx].double()                          # (N, k, 3)
+    w = (mask[idx] & mask[:, None]).double()[..., None]
     cnt = torch.clamp(w.sum(1), min=1.0)                 # (N, 1)
     mean = (nbrs * w).sum(1) / cnt
     centered = (nbrs - mean[:, None, :]) * w
     cov = torch.einsum("nki,nkj->nij", centered, centered) / cnt[..., None]
-    return _normals_from_cov(cov, points, mask, viewpoint)
+    return _normals_from_cov(cov.float(), points, mask, viewpoint)

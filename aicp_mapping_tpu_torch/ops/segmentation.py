@@ -1,9 +1,11 @@
 """Plane segmentation, PyTorch port of `aicp_mapping_tpu.ops.segmentation`.
 
-- The planes-only prefilter: `plane_segmentation_filter` with
-  `method="hough"` and an `out_capacity`, i.e. the fused sorted-space
-  prefilter (`_hough_prefilter_sorted`). Its region-growing method and the
-  uncompacted hough path are not ported (ROADMAP Q1 #11).
+- The planes-only prefilter `plane_segmentation_filter`: with
+  `method="hough"` and an `out_capacity` the fused sorted-space prefilter
+  (`_hough_prefilter_sorted`); with `method="region_growing"` an exact kNN
+  build shared by kNN normals and min-label propagation; without an
+  `out_capacity` the uncompacted result (hough: radius normals and
+  `hough_plane_labels`).
 - Region growing as the alignability filter runs it:
   `label_propagation_clusters` (min-label propagation over the kNN
   smoothness graph), `filter_small_clusters` and `compact_labels`.
@@ -19,7 +21,8 @@ import torch
 from .banded_nn import SENTINEL, morton_codes
 from .knn import knn
 from .normals import (banded_by_shape, moments_to_normals,
-                      radius_moments_kernel, sorted_radius_moments_kernel)
+                      normals_from_neighbors, radius_moments_kernel,
+                      radius_normals, sorted_radius_moments_kernel)
 
 _BIG = 3.4e38
 
@@ -127,24 +130,93 @@ def _hough_prefilter_sorted(points, mask, viewpoint, normal_radius,
             torch.where(out_mask, l4, -1))
 
 
+def _compact_unique_keys(keys: torch.Tensor,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """Map non-negative keys to dense ids [0, n_unique) in key order by one
+    sort; invalid entries -> -1."""
+    big = 2**31 - 1
+    k = torch.where(valid, keys, big)
+    ks, order = torch.sort(k, stable=True)
+    seg = torch.cumsum(_run_starts(ks).to(torch.int64), 0) - 1
+    inv = torch.empty_like(seg)
+    inv[order] = torch.where(ks < big, seg, -1)
+    return inv
+
+
+def hough_plane_labels(points, mask, normals, curvature, normal_bins: int = 6,
+                       offset_res: float = 0.15,
+                       curvature_thresh: float = 1.0) -> torch.Tensor:
+    """Plane clustering by quantized (normal direction, plane offset) cells:
+    two points share a label iff they vote for the same cell. Normals must
+    be consistently oriented. Returns dense labels (N,) int64, -1 for
+    invalid or high-curvature points."""
+    key = _hough_key(points, normals, normal_bins, offset_res)
+    return _compact_unique_keys(key, mask & (curvature <= curvature_thresh))
+
+
 def plane_segmentation_filter(points, mask, viewpoint=None, normal_k=30,
                               graph_k=15, smoothness_deg=3.0,
                               curvature_thresh=1.0, min_cluster_size=50,
                               out_capacity=None, method="hough",
                               normal_radius=0.4):
-    """Planes-only retention on an already-downsampled cloud; returns
-    (points, mask, normals, curvature, labels) compacted to `out_capacity`
-    in cluster-balanced round-robin order. `normal_k`, `graph_k` and
-    `smoothness_deg` belong to region growing, which is not ported."""
-    if method != "hough" or out_capacity is None:
-        raise NotImplementedError(
-            f"plane_segmentation_filter(method={method!r}, out_capacity="
-            f"{out_capacity!r}): only the compacted hough prefilter is "
-            "ported; region growing and the uncompacted path are ROADMAP "
-            "Q1 #11")
-    return _hough_prefilter_sorted(points, mask, viewpoint, normal_radius,
-                                   curvature_thresh, min_cluster_size,
-                                   out_capacity)
+    """Planes-only retention on an already-downsampled cloud: (points,
+    mask, normals, curvature, labels). With `out_capacity` the kept points
+    are compacted to that capacity in cluster-balanced round-robin order
+    (`_balanced_compaction_perm`); without it every point stays where it
+    was and the mask says which are kept.
+
+    method="hough": radius normals + quantized (normal, offset) plane
+    cells. method="region_growing": one exact kNN build (`normal_k`
+    neighbours, self included) shared by kNN normals and min-label
+    propagation over its first `graph_k` columns (`smoothness_deg`)."""
+    if method == "hough" and out_capacity is not None:
+        return _hough_prefilter_sorted(points, mask, viewpoint, normal_radius,
+                                       curvature_thresh, min_cluster_size,
+                                       out_capacity)
+    if method == "hough":
+        normals, curvature, _ = radius_normals(points, mask, normal_radius,
+                                               viewpoint)
+        labels = hough_plane_labels(points, mask, normals, curvature,
+                                    curvature_thresh=curvature_thresh)
+    elif method == "region_growing":
+        _, nbr_idx = knn(points, mask, points, mask, normal_k)
+        normals, curvature, _ = normals_from_neighbors(points, mask, nbr_idx,
+                                                       viewpoint)
+        labels = label_propagation_clusters(
+            points, mask, normals, curvature, k=graph_k,
+            smoothness_deg=smoothness_deg, curvature_thresh=curvature_thresh,
+            neighbor_idx=nbr_idx)
+    else:
+        raise ValueError(f"unknown segmentation method {method!r}")
+    keep = filter_small_clusters(labels, mask, min_cluster_size)
+    if out_capacity is None:
+        return points, keep, normals, curvature, labels
+    perm = _balanced_compaction_perm(labels, keep)[:out_capacity]
+    return points[perm], keep[perm], normals[perm], curvature[perm], \
+        labels[perm]
+
+
+def _balanced_compaction_perm(labels: torch.Tensor,
+                              keep: torch.Tensor) -> torch.Tensor:
+    """Cluster-balanced, spatially spread selection order for capacity
+    truncation: kept points round-robin across clusters (rank within
+    cluster), each cluster in bit-reversed positional order, so a cluster
+    that keeps only a prefix keeps a uniformly spread subset; unkept rows
+    last. JAX's three sorts, stable, the two-key one by a composite key."""
+    n = labels.shape[0]
+    big = 2**30
+    iota = torch.arange(n, device=labels.device)
+    lbl = torch.where(keep, labels, big)
+    # group by cluster (stable: spatial order within each cluster)
+    lbl1, idx1 = torch.sort(lbl, stable=True)
+    pos = iota - torch.cummax(torch.where(_run_starts(lbl1), iota, 0),
+                              0).values
+    # bit-reversed position within each cluster; the grouping, and so each
+    # row's rank within its cluster, stays as it was
+    idx2 = idx1[_stable_perm(lbl1 * (1 << 17) + _bitrev17(pos))]
+    # round-robin across clusters
+    sel_key = torch.where(keep[idx2], pos, big)
+    return idx2[_stable_perm(sel_key)]
 
 
 # Rounds run by `label_propagation_clusters` since the last reset: each

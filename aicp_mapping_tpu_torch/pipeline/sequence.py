@@ -1,13 +1,28 @@
-"""Synthetic lidar sequence (numpy only), a copy of
-`aicp_mapping_tpu.pipeline.sequence.synthetic_sequence` whose SO(3)
-exponential runs in numpy float32 instead of jax.numpy. The sequence
-runner, recorder and wire formats are not ported yet (ROADMAP Q1 #8).
+"""Offline sequence runner + recorder and the synthetic sequence, PyTorch
+port of `aicp_mapping_tpu.pipeline.sequence`.
+
+`SequenceRunner` feeds clouds through `App.process_cloud`: from memory
+(`run_clouds`) or from a recorded directory (`run_directory`:
+`aicp_input_poses.csv` + `cloud_<i>_<sec>_<nsec>.pcd`, read one by one with
+`io.pcd.read_cloud`; the JAX package's native prefetcher is not ported).
+It runs synchronously: pipelined submission, its threaded wire prep and
+the wire formats are ROADMAP Q1 #8. `SequenceRecorder` writes that
+layout.
+`synthetic_sequence` is a copy of the JAX function whose SO(3) exponential
+runs in numpy float32 instead of jax.numpy.
 """
 from __future__ import annotations
 
+import os
+from typing import Iterable, Optional
+
 import numpy as np
 
+from ..cloud import AlignedCloud, Cloud
+from ..io.pcd import read_cloud, write_pcd
+from ..io.poses import PoseWithTime, read_pose_csv, write_pose_csv
 from ..tools.synthetic import room_cloud
+from .app import FrameResult
 
 
 def _yaw_transform(yaw: float, t) -> np.ndarray:
@@ -72,3 +87,74 @@ def synthetic_sequence(
                       T_odom.copy()))
         gt_poses.append(T_true.copy())
     return items, np.stack(gt_poses)
+
+
+class SequenceRunner:
+    """Drives `App.process_cloud` frame by frame; results come out in
+    order. `pipelined=True` (the JAX package's depth-1 submission
+    pipeline) is ROADMAP Q1 #8 and raises."""
+
+    def __init__(self, app, raw_capacity: Optional[int] = None,
+                 pipelined: bool = False):
+        if pipelined:
+            raise NotImplementedError(
+                "SequenceRunner(pipelined=True): pipelined submission is "
+                "ROADMAP Q1 #8")
+        self.app = app
+        self.raw_capacity = raw_capacity or app.cfg.raw_capacity
+
+    def _process(self, utime: int, pts: np.ndarray, pose) -> FrameResult:
+        cloud = Cloud.from_numpy(pts, capacity=self.raw_capacity,
+                                 device=self.app.device)
+        return self.app.process_cloud(AlignedCloud.create(
+            utime, cloud, np.asarray(pose, np.float32)))
+
+    def run_directory(self, directory: str) -> list[FrameResult]:
+        """Replay a recorded sequence, reading each cloud when its frame
+        comes. A cloud over the raw capacity is cut to it by an even
+        stride, as the JAX package's loader does; unreadable files are
+        skipped."""
+        poses = read_pose_csv(os.path.join(directory,
+                                           "aicp_input_poses.csv"))
+        cap = self.raw_capacity
+        results = []
+        for p in poses:
+            path = os.path.join(directory,
+                                f"cloud_{p.counter}_{p.sec}_{p.nsec}.pcd")
+            try:
+                pts, _ = read_cloud(path)
+            except IOError:
+                continue
+            if len(pts) > cap:
+                pts = pts[(np.arange(cap) * (len(pts) / cap)).astype(
+                    np.int64)]
+            results.append(self._process(p.utime, pts, p.pose))
+        return results
+
+    def run_clouds(self, items: Iterable[tuple[int, np.ndarray, np.ndarray]]
+                   ) -> list[FrameResult]:
+        """items: (utime, points (N, 3), prior_pose (4, 4))."""
+        return [self._process(*item) for item in items]
+
+
+class SequenceRecorder:
+    """Writes clouds + the pose CSV in the replayable layout."""
+
+    def __init__(self, directory: str):
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+        self._poses: list[PoseWithTime] = []
+        self._counter = 0
+
+    def record(self, utime: int, points: np.ndarray, pose: np.ndarray) -> None:
+        sec = utime // 1_000_000
+        nsec = utime - sec * 1_000_000
+        p = PoseWithTime(self._counter, int(sec), int(nsec),
+                         np.asarray(pose, np.float32))
+        self._poses.append(p)
+        write_pcd(os.path.join(
+            self.directory, f"cloud_{p.counter}_{p.sec}_{p.nsec}.pcd"),
+            points)
+        self._counter += 1
+        write_pose_csv(os.path.join(self.directory, "aicp_input_poses.csv"),
+                       self._poses)

@@ -30,7 +30,14 @@ launch counts set to 0 just before it and read just after:
   `nn_payload_pallas`, K1) at 8,192 x 8,192, and `ops.banded_nn`'s
   `nn_argmin_banded_prepared` (K5's index mode), `nn_payload_banded_sorted`
   and `nn_payload_banded_resident` (K5) at 8,192 x 65,536, against exact
-  1-NN by the plain twins on the card.
+  1-NN by the plain twins on the card;
+- the SLAM path (`run_slam`): `eval.slam_accuracy`'s urban drive at seed
+  0 (44 frames, region growing at 16,384 raw / 8,192 voxels / 4,096
+  filtered points) through the App and `run_backend` (loop closures by
+  K1, keyframe normals by K3, PGO, plane BA), each back-end stage timed
+  and counted, against the accuracy regression's assertions (its two
+  back-end margins at seeds 3 and 7, printed at seed 0), with the whole
+  back-end replayed by a CPU mapper from the card's seed-0 keyframes.
 
 Phase 3 also holds K1 and K5 (both modes) to their twins on a scene of
 exact ties across the slices their split scans cut the window into, and
@@ -295,18 +302,19 @@ def check_kernels(torch, results: dict) -> None:
 
     dev = "cuda"
     rng = np.random.default_rng(0)
-    ref_np = lidar_room(8192, seed=1)
-    ref = torch.as_tensor(ref_np, device=dev)
-    rmask = torch.arange(8192, device=dev) < 8000
-    payload = torch.cat([ref, torch.as_tensor(
-        rng.normal(size=(8192, 5)).astype(np.float32), device=dev)],
-        dim=1).contiguous()
     # queries: a second scan of the room, slightly moved (an ICP iterate)
     T = se3.se3_exp(torch.tensor([0.05, -0.03, 0.01, 0.0, 0.0, 0.01],
                                  device=dev))
-    scan = torch.as_tensor(lidar_room(8192, seed=2), device=dev)
-    for M in (8192, 1024):
-        q = se3.transform_points(T, scan[:: 8192 // M]).contiguous()
+    # (M, N): the frame path's fine and coarse ICP, and the SLAM path's
+    # front-end and closure ICP at 4,096 x 4,096 (no coarse phase there)
+    for M, N in ((8192, 8192), (1024, 8192), (4096, 4096)):
+        ref = torch.as_tensor(lidar_room(N, seed=1), device=dev)
+        rmask = torch.arange(N, device=dev) < N - 3 * N // 128
+        payload = torch.cat([ref, torch.as_tensor(
+            rng.normal(size=(N, 5)).astype(np.float32), device=dev)],
+            dim=1).contiguous()
+        scan = torch.as_tensor(lidar_room(N, seed=2), device=dev)
+        q = se3.transform_points(T, scan[:: N // M]).contiguous()
         qm = torch.arange(M, device=dev) < M - M // 32
         args = (q, qm, ref, rmask, payload)
         d_k, p_k = knn.nn_payload_kernel(*args)
@@ -315,8 +323,8 @@ def check_kernels(torch, results: dict) -> None:
         same = (p_k == p_p).all(1)
         frac = same[qm].float().mean().item()
         err = (d_k - d_p)[qm].abs().max().item()
-        log(f"K1 nn_payload M={M} N=8192: identical payload rows {frac:.5f}"
-            f", max|dd2| {err:.3g} m^2")
+        log(f"K1 nn_payload M={M} N={N} ({grid(knn.nn_split_plan(M, N), M)})"
+            f": identical payload rows {frac:.5f}, max|dd2| {err:.3g} m^2")
         assert frac >= 0.997, frac
         assert err <= 3e-3, err
         assert bool(same[~qm].all()) and bool((d_k[~qm] == 3.4e38).all())
@@ -324,15 +332,16 @@ def check_kernels(torch, results: dict) -> None:
         plain = time_ms(torch, lambda: knn.nn_payload(*args))
         P = payload.shape[1]
         b = bound(OPS_PER_PAIR * int(qm.sum()) * int(rmask.sum()),
-                  13 * (M + 8192) + 4 * P * 8192 + 4 * M * (1 + P))
-        log(f"K1 nn_payload M={M} N=8192: kernel {ms * 1e3:.1f} us "
-            f"({grid(knn.nn_split_plan(M, 8192), M)}), plain "
+                  13 * (M + N) + 4 * P * N + 4 * M * (1 + P))
+        log(f"K1 nn_payload M={M} N={N}: kernel {ms * 1e3:.1f} us "
+            f"({grid(knn.nn_split_plan(M, N), M)}), plain "
             f"{plain * 1e3:.1f} us, bound {b['bound_ms'] * 1e3:.1f} us "
             f"({b['bound_by']})")
         r = results.setdefault("nn_payload", dict(max_abs_err=0.0))
         r["max_abs_err"] = max(r["max_abs_err"], err)
-        r.update({f"ms_{M}": ms, f"plain_ms_{M}": plain,
-                  f"bound_ms_{M}": b["bound_ms"]})
+        tag = str(M) if N == 8192 else f"{M}x{N}"
+        r.update({f"ms_{tag}": ms, f"plain_ms_{tag}": plain,
+                  f"bound_ms_{tag}": b["bound_ms"]})
         if M == 8192:
             r.update(ms=ms, plain_ms=plain, **b)
 
@@ -638,7 +647,8 @@ def check_tie_scenes(torch) -> None:
     """Phase 3, ties across splits: points on a small integer grid (every
     squared distance exact in any rounding, and many equal), each reference
     point stored twice, half a reference apart, and the reference's first
-    slice masked. K1 (both modes) at 8,192 x 8,192 and 1,024 x 8,192 and K5
+    slice masked. K1 (both modes) at 8,192 x 8,192, 1,024 x 8,192 and the
+    SLAM path's 4,096 x 4,096, and K5
     (both modes) at the coarse phase's 1,024 x 65,536, band 64 (the whole
     reference), each equal to its plain twin: the lowest index wins every
     tie."""
@@ -656,7 +666,8 @@ def check_tie_scenes(torch) -> None:
     def equal(got, want):
         return all(torch.equal(a, b) for a, b in zip(got, want))
 
-    for M, N, band in ((8192, 8192, 0), (1024, 8192, 0), (1024, 65536, 64)):
+    for M, N, band in ((8192, 8192, 0), (1024, 8192, 0), (4096, 4096, 0),
+                       (1024, 65536, 64)):
         half = points(N // 2)
         r = torch.cat([half, half]).contiguous()
         q = points(M)
@@ -1184,6 +1195,246 @@ def run_golden_maps(torch) -> None:
             "tests/golden/pipeline_golden.json")
 
 
+def near_gate(m, lc, pre: np.ndarray, post: np.ndarray,
+              consistency_reject_t: float = 0.15) -> bool:
+    """Whether loop closure `lc` of mapper `m` sits within rounding of one
+    of the gates that accept it: inlier rms, the seam bounds on the prior's
+    correction (`pre`: the keyframe poses it was proposed at), the post-fit
+    overlap, or the consistency test at the optimized poses `post`. Two
+    implementations may disagree on such a closure."""
+    Z0 = np.linalg.inv(pre[lc.i]) @ pre[lc.j]
+    D = np.linalg.inv(Z0) @ lc.measurement
+    ang = np.rad2deg(np.arccos(np.clip((np.trace(D[:3, :3]) - 1) / 2, -1, 1)))
+    r = np.linalg.inv(lc.measurement) @ np.linalg.inv(post[lc.i]) @ post[lc.j]
+    return (abs(lc.inlier_rms - m.closure_rms) < 0.01
+            or abs(np.linalg.norm(D[:3, 3]) - m.max_seam_t) < 0.02
+            or abs(ang - m.max_seam_rot_deg) < 0.2
+            or abs(lc.overlap - m.min_loop_overlap) < 1.0
+            or abs(np.linalg.norm(r[:3, 3]) - consistency_reject_t) < 0.02)
+
+
+def check_slam_accuracy(out: dict, margins: bool = True) -> None:
+    """tests/test_slam_accuracy.py's assertions on a `run_backend` record.
+    With `margins=False` the two back-end margins (post-PGO ATE < 0.5 x the
+    front-end's, post-BA <= 1.03 x post-PGO) are printed, not asserted:
+    on the card's seed-0 keyframes the JAX package's own back-end misses
+    them too, on the keyframes as they are and on copies moved by one ulp
+    (`tests/test_torch_slam_replay.py`, PERF.md)."""
+    assert out["frames_accepted"] == 34, out
+    assert out["frames_registered"] < out["frames_accepted"], out
+    assert out["n_loop_closures"] >= 3, out
+    pre_gap = sum(1 for f in out["keyframe_frames"] if f < 14)
+    assert any(i < pre_gap <= j for i, j in out["closure_spans"]), out
+    assert out["ate_frontend_m"] > 0.3, out
+    assert out["plane_ba_ran"], out
+    pgo = out["ate_post_pgo_m"] / out["ate_frontend_m"]
+    ba = out["ate_post_ba_m"] / out["ate_post_pgo_m"]
+    log(f"slam margins, seed {out['seed']}: post-PGO / front-end ATE "
+        f"{pgo:.3f} (< 0.5 in tests/test_slam_accuracy.py); post-BA / "
+        f"post-PGO {ba:.3f} (<= 1.03){'' if margins else ' (printed)'}")
+    if margins:
+        assert pgo < 0.5 and ba <= 1.03, out
+
+
+def run_slam(torch) -> None:
+    """The SLAM path on the card: `eval.slam_accuracy`'s urban drive at seed
+    0 (44 frames, 34 delivered; region growing at 16,384 raw / 8,192 voxels
+    / 4,096 filtered / 65,536 map points) through `frontend_on` (the App and
+    SequenceRunner, as `run_frontend` drives them) and `run_backend` (two
+    rounds of closure proposal + PGO, then plane BA), i.e.
+    `run_slam_accuracy(seed=0, device="cuda")` with its stages timed, held
+    to `check_slam_accuracy` but its margins; then
+    `run_slam_accuracy(seed=3 and 7, device="cuda")`, held to all of it.
+    One frame's prefilter must keep the CPU's points. From the card's
+    seed-0 keyframes the CPU runs the same back-end: the same closures
+    proposed and kept in each round (a pair at a gate edge is printed, not
+    failed), their measurements within 2 cm / 0.5 deg, post-PGO and
+    post-BA ATE within 1 cm (with a gate-edge pair: the ATE of a PGO over
+    the closures both kept, each device's measurements, from the card's
+    second-round poses). The CPU solves each of the card's PGO graphs to
+    the card's poses within 1 mm; two card solves of a graph give the same
+    bits."""
+    import tempfile
+
+    from aicp_mapping_tpu_torch import App, Cloud, _kernels, convert
+    from aicp_mapping_tpu_torch.eval import slam_accuracy as sa
+    from aicp_mapping_tpu_torch.ops import segmentation
+    from aicp_mapping_tpu_torch.pipeline import mapper
+    ba = importlib.import_module("aicp_mapping_tpu_torch.parallel.ba")
+    pg = importlib.import_module("aicp_mapping_tpu_torch.parallel.posegraph")
+
+    t0 = time.perf_counter()
+    items, gt, meta = sa.urban_drive(seed=0)
+    host_s = time.perf_counter() - t0
+    segmentation.reset_propagation_rounds()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    app, gt, meta = sa.frontend_on(items, gt, meta)
+    torch.cuda.synchronize()
+    front_s = time.perf_counter() - t0
+    rounds = segmentation.propagation_rounds()["rounds"]
+    log(f"slam front-end on the card: {len(items)} frames in {front_s:.2f} s"
+        f" ({front_s / len(items) * 1e3:.1f} ms/frame; {rounds} "
+        f"label-propagation rounds), the drive made on the host in "
+        f"{host_s:.1f} s")
+    # one frame's voxel + region-growing prefilter, card against CPU
+    cpu_app = App(sa.scenario_config(), device="cpu")
+    _, pts, pose = items[5]
+    cap = app.cfg.raw_capacity
+    card = app.filter_cloud(Cloud.from_numpy(pts, cap, "cuda"), pose[:3, 3])
+    cpu = cpu_app.filter_cloud(Cloud.from_numpy(pts, cap), pose[:3, 3])
+    log(f"slam prefilter of frame 5: card keeps {int(card.mask.sum())}, CPU "
+        f"{int(cpu.mask.sum())} points")
+    assert torch.equal(card.mask.cpu(), cpu.mask)
+    assert torch.equal(card.points.cpu(), cpu.points)
+
+    stages, solves = [], []
+    Mapper = mapper.PoseGraphMapper
+
+    def timed(fn, sink, **tags):
+        def run(*args, **kwargs):
+            before = {**mapper.backend_counts(), **_kernels.launch_counts()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            after = {**mapper.backend_counts(), **_kernels.launch_counts()}
+            kept = (list(args[0].loop_closures)
+                    if tags["stage"] == "optimize" else None)
+            sink.append(dict(tags, s=time.perf_counter() - t, out=out,
+                             args=args, kept=kept,
+                             **{k: after[k] - before[k] for k in after}))
+            return out
+        return run
+
+    saved = [(Mapper, n, getattr(Mapper, n)) for n in (
+        "propose_loop_closures", "optimize", "run_plane_ba")]
+    saved += [(mapper, "optimize_pose_graph", mapper.optimize_pose_graph),
+              (ba, "optimize_plane_ba", ba.optimize_plane_ba)]
+    for obj, name, fn in saved:
+        setattr(obj, name, timed(fn, solves if obj is not Mapper else stages,
+                                 stage=name))
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        snap = os.path.join(d, "frontend.npz")
+        sa.save_frontend_snapshot(app, gt, meta, snap)
+        kfs = Mapper(app).keyframes()
+        pre = np.stack([k.pose for k in kfs])
+        utimes = [k.utime for k in kfs]
+        try:
+            t0 = time.perf_counter()
+            out = sa.run_backend(app, gt, meta)
+            back_s = time.perf_counter() - t0
+            card, card_solves = list(stages), list(solves)
+            # the same back-end on the CPU, from the card's keyframes
+            del stages[:], solves[:]
+            capp, _, _ = sa.load_frontend_snapshot(snap, device="cpu")
+            t0 = time.perf_counter()
+            cpu_out = sa.run_backend(capp, gt, meta)
+            cpu_s = time.perf_counter() - t0
+            cpu = list(stages)
+        finally:
+            for obj, name, fn in saved:
+                setattr(obj, name, fn)
+
+    want = json.load(open(os.path.join(ROOT, "ACCURACY_SLAM.json")))
+    poses = [pre] + [np.stack([k.pose for k in x["out"]]) for x in card
+                     if x["stage"] != "propose_loop_closures"]
+    ate = [sa._keyframe_ate(x["out"], gt) for x in card
+           if x["stage"] != "propose_loop_closures"]
+    log(f"slam accuracy on the card: {json.dumps(out)}; keyframe ATE after "
+        f"each PGO round and BA: {ate}")
+    log(f"ACCURACY_SLAM.json (the JAX package, CPU): {json.dumps(want)}")
+    check_slam_accuracy(out, margins=False)
+
+    pgo = [x for x in card_solves if x["stage"] == "optimize_pose_graph"]
+    bas = [x for x in card_solves if x["stage"] == "optimize_plane_ba"]
+    summary = dict(front_ms_per_frame=front_s / len(items) * 1e3,
+                   propagation_rounds=rounds, backend_s=back_s,
+                   pgo_ms=[x["s"] * 1e3 for x in pgo],
+                   ba_solve_ms=[x["s"] * 1e3 for x in bas], stages=[
+                       {k: x[k] for k in ("stage", "s", "candidates",
+                                          "icp_calls", "host_reads",
+                                          "nn_payload", "radius_moments")}
+                       for x in card])
+    log(f"slam back-end on the card: {json.dumps(summary)}")
+
+    # the CPU's back-end against the card's, round by round
+    log(f"slam back-end on the CPU from the card's keyframes: {cpu_s:.1f} s;"
+        f" {json.dumps(cpu_out)}")
+    gates = Mapper(capp, **sa.MAPPER_KW)
+    edge = False
+    for r in range(2):
+        for what, key, at in (("proposed", "out", 2 * r),
+                              ("kept", "kept", 2 * r + 1)):
+            g = {(lc.i, lc.j): lc for lc in card[at][key]}
+            c = {(lc.i, lc.j): lc for lc in cpu[at][key]}
+            log(f"slam round {r + 1}, {what}: closures card {sorted(g)}, "
+                f"cpu {sorted(c)}")
+            for pair in set(g) ^ set(c):
+                lc = g.get(pair) or c.get(pair)
+                assert near_gate(gates, lc, poses[r], poses[r + 1]), (
+                    r, what, pair, lc)
+                log(f"slam round {r + 1}: closure {pair} {what} on one "
+                    f"device only sits at a gate edge: {lc}")
+                edge = True
+            for pair in set(g) & set(c):
+                D = np.linalg.inv(g[pair].measurement) @ c[pair].measurement
+                ang = np.rad2deg(np.arccos(np.clip(
+                    (np.trace(D[:3, :3]) - 1) / 2, -1, 1)))
+                assert np.linalg.norm(D[:3, 3]) <= 0.02 and ang <= 0.5, (
+                    pair, D)
+    if not edge:
+        for key in ("ate_post_pgo_m", "ate_post_ba_m"):
+            assert abs(out[key] - cpu_out[key]) <= 0.01, (key, out, cpu_out)
+    else:
+        # a PGO over the closures both devices kept, each with its own
+        # measurements, from the card's second-round poses
+        def common_ate(m, lcs):
+            m.loop_closures = sorted(lcs, key=lambda lc: (lc.i, lc.j))
+            start = [mapper.Keyframe(0, u, p, None)
+                     for u, p in zip(utimes, poses[1])]
+            opt = pg.optimize_pose_graph(m.build_graph(start),
+                                         robust_delta=m.pgo_robust_delta)[0]
+            return sa._keyframe_ate([mapper.Keyframe(0, u, p, None) for u, p
+                                     in zip(utimes, opt.cpu().numpy())], gt)
+        g = {(lc.i, lc.j): lc for lc in card[3]["kept"]}
+        c = {(lc.i, lc.j): lc for lc in cpu[3]["kept"]}
+        both = set(g) & set(c)
+        a_card = common_ate(Mapper(app, **sa.MAPPER_KW),
+                            [g[p] for p in both])
+        a_cpu = common_ate(gates, [c[p] for p in both])
+        log(f"slam PGO over the {len(both)} closures both devices kept: "
+            f"ATE card {a_card:.4f} m, CPU {a_cpu:.4f} m")
+        assert abs(a_card - a_cpu) <= 0.01, (a_card, a_cpu)
+    # every PGO solve of the card again on the CPU, from the card's graph
+    d = []
+    for x in pgo:
+        cpu_opt = pg.optimize_pose_graph(convert.pose_graph_from_numpy(
+            **convert.pose_graph_to_numpy(x["args"][0]), device="cpu"),
+            robust_delta=10.0)[0]
+        d.append(float((x["out"][0].cpu() - cpu_opt)[:, :3, 3].norm(
+            dim=1).max()))
+    again = pg.optimize_pose_graph(pgo[0]["args"][0], robust_delta=10.0)[0]
+    log(f"slam PGO of each of the card's graphs "
+        f"({pgo[0]['args'][0].n_poses} poses, edges "
+        f"{[x['args'][0].n_edges for x in pgo]}), card vs CPU: {d} m; two "
+        f"card solves equal: "
+        f"{bool(torch.equal(again, pgo[0]['out'][0]))}")
+    assert max(d) <= 1e-3, d
+    assert torch.equal(again, pgo[0]["out"][0])
+
+    # the regression's other seeds on the card, margins asserted
+    for seed in (3, 7):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sa.run_slam_accuracy(seed=seed, device="cuda")
+        torch.cuda.synchronize()
+        log(f"slam accuracy on the card, seed {seed} "
+            f"({time.perf_counter() - t0:.1f} s): {json.dumps(res)}")
+        check_slam_accuracy(res)
+
+
 def drive(name: str, fn, expect) -> dict:
     """Run one main path with the launch counts set to 0 just before it;
     returns its counts and fails if a kernel of the path never launched."""
@@ -1227,7 +1478,7 @@ def main() -> int:
     check_nn_api_kernels(torch, results, nn)
     check_tie_scenes(torch)
 
-    # 4-11. the main paths, each with its own launch counts
+    # 4-12. the main paths, each with its own launch counts
     bench_ms = {}
     paths = [
         drive("frame", lambda: bench_ms.update(
@@ -1249,12 +1500,14 @@ def main() -> int:
               ("nn_argmin", "banded_nn_payload_stream", "nn_payload")),
         drive("nn api", lambda: run_nn_api(torch, nn),
               ("nn_payload", "banded_nn_payload_stream", "banded_nn_argmin")),
+        drive("slam", lambda: run_slam(torch),
+              ("nn_payload", "radius_moments")),
     ]
     log(f"bench operating point on the card: {bench_ms['off']:.2f} ms/frame"
         f" without failure prediction, {bench_ms['on']:.2f} with it")
     counts = {k: sum(c[k] for c in paths) for k in KERNELS}
 
-    # 12. the main paths went through every kernel
+    # 13. the main paths went through every kernel
     log(f"launches on all paths: {counts}")
     assert all(counts[k] > 0 for k in KERNELS), counts
 

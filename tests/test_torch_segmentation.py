@@ -1,5 +1,8 @@
 """Parity of the port's hough prefilter with the JAX package's fused
-sorted-space prefilter, and its shape-based moments dispatch."""
+sorted-space prefilter, its shape-based moments dispatch, the
+cluster-balanced compaction and the region-growing prefilter."""
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,6 +17,7 @@ from aicp_mapping_tpu.tools.synthetic import room_cloud
 from aicp_mapping_tpu_torch.ops import segmentation as seg
 
 torch.set_num_threads(1)
+jknn = importlib.import_module("aicp_mapping_tpu.ops.knn")
 
 
 @pytest.fixture(scope="module")
@@ -111,9 +115,67 @@ def test_moments_dispatch_by_shape(monkeypatch):
 
 
 def test_unported_segmentation_methods_raise():
-    pts = torch.zeros((64, 3))
+    """Region growing and the uncompacted hough path are ported (their
+    parity tests below and in tests/test_torch_backend.py); only an
+    unknown method raises."""
+    pts = torch.as_tensor(np.random.default_rng(0).uniform(
+        0, 4, (64, 3)).astype(np.float32))
     mask = torch.ones(64, dtype=torch.bool)
     for kw in (dict(method="region_growing", out_capacity=32),
                dict(method="hough")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            seg.plane_segmentation_filter(pts, mask, **kw)
+        out = seg.plane_segmentation_filter(pts, mask, **kw)
+        assert out[0].shape[0] == kw.get("out_capacity", 64)
+        assert torch.isfinite(out[2]).all()
+    with pytest.raises(ValueError, match="unknown"):
+        seg.plane_segmentation_filter(pts, mask, method="bogus")
+
+
+def _t(a):
+    a = np.array(a)
+    return torch.as_tensor(a.astype(np.int64) if a.dtype.kind == "i" else a)
+
+
+def test_balanced_compaction_perm_bit_equal():
+    rng = np.random.default_rng(5)
+    for n, n_labels in ((4096, 40), (3000, 7)):
+        labels = rng.integers(-1, n_labels, n).astype(np.int32)
+        keep = (labels >= 0) & (rng.uniform(size=n) < 0.8)
+        want = np.asarray(jseg._balanced_compaction_perm(
+            jnp.asarray(labels), jnp.asarray(keep)))
+        got = seg._balanced_compaction_perm(_t(labels), _t(keep))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_region_growing_matches_jax():
+    """Given JAX's neighbour indices (and its kNN normals), min-label
+    propagation gives JAX's labels exactly; the whole region-growing
+    prefilter (the port's exact kNN, JAX's approximate one) keeps the same
+    points to >= 99 % on a room."""
+    pts = room_cloud(n=4000, size=8.0, seed=0, noise=0.003)
+    mask = np.ones(len(pts), bool)
+    mask[::37] = False
+    jp, jm = jnp.asarray(pts), jnp.asarray(mask)
+    _, idx = jknn.knn(jp, jm, jp, jm, 30)
+    vp = jnp.asarray([0.5, -0.3, 1.2], jnp.float32)
+    normals, curv, _ = jnorm.normals_from_neighbors(jp, jm, idx, vp)
+    want = np.asarray(jseg.label_propagation_clusters(
+        jp, jm, normals, curv, k=15, neighbor_idx=idx))
+    got = seg.label_propagation_clusters(
+        *(_t(a) for a in (pts, mask, normals, curv)), k=15,
+        neighbor_idx=_t(idx))
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert len(np.unique(want[want >= 0])) > 5
+
+    kw = dict(method="region_growing", min_cluster_size=30)
+    jout = jseg.plane_segmentation_filter(jp, jm, vp, **kw)
+    tout = seg.plane_segmentation_filter(_t(pts), _t(mask), _t(vp), **kw)
+    jkeep, tkeep = np.asarray(jout[1]), tout[1].numpy()
+    assert (jkeep & tkeep).sum() >= 0.99 * (jkeep | tkeep).sum(), \
+        ((jkeep & tkeep).sum(), (jkeep | tkeep).sum())
+    # compacted: the kept points lead, in the round-robin order
+    cap = 2048
+    comp = seg.plane_segmentation_filter(_t(pts), _t(mask), _t(vp),
+                                         out_capacity=cap, **kw)
+    perm = seg._balanced_compaction_perm(tout[4], tout[1])[:cap]
+    np.testing.assert_array_equal(comp[0].numpy(), pts[perm.numpy()])
+    assert int(comp[1].sum()) == min(cap, int(tkeep.sum()))
