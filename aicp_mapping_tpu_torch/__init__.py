@@ -6,12 +6,17 @@ is the reference every ported function is tested against. The per-frame
 AICP path (voxel downsample -> hough prefilter -> voxel-set overlap ->
 auto-tuned trimmed ICP -> gates), with failure prediction (FOV overlap,
 alignability, the risk classifier and its gate) when asked, runs end to end
-through `App(config).process_cloud(...)`; map-scale localization against a
+through `App(config).process_cloud(...)`, or pipelined through
+`App.submit_cloud` / `flush` and `pipeline.SequenceRunner(pipelined=True)`
+with async finalize and the int16 wire format, or online through
+`pipeline.stream.StreamingDriver`; map-scale localization against a
 prior map through the App's map modes and `parallel.ShardedMapLocalizer`;
 one scan pair through `python -m aicp_mapping_tpu_torch register`; the SLAM
 back-end (loop closures, pose-graph optimization, plane BA) through
 `pipeline.mapper.PoseGraphMapper`, `python -m aicp_mapping_tpu_torch slam`
-and `eval.slam_accuracy`. The entry points run on the card unless given
+and `eval.slam_accuracy`; recorded sequences through the `replay`,
+`accumulate` and `localize` commands. The entry points run on the card
+unless given
 `device="cpu"`. The TPU kernels
 on those paths are hand-written CUDA C++ for sm_90a (see `_kernels`).
 

@@ -72,17 +72,25 @@ _SIGNATURES = {
 }
 
 
+# Guards the counts: wrappers may launch from several threads (an App's
+# dispatch and its finalizer).
+_count_lock = threading.Lock()
+
+
 def launch_counts() -> dict:
-    return dict(_launches)
+    with _count_lock:
+        return dict(_launches)
 
 
 def reset_launch_counts() -> None:
-    for k in _launches:
-        _launches[k] = 0
+    with _count_lock:
+        for k in _launches:
+            _launches[k] = 0
 
 
 def count_launch(name: str) -> None:
-    _launches[name] += 1
+    with _count_lock:
+        _launches[name] += 1
 
 
 def sources() -> list:

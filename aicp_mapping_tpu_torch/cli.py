@@ -1,7 +1,10 @@
 """Command-line tools of the port.
 
     python -m aicp_mapping_tpu_torch register READING REFERENCE [--device cpu]
-    python -m aicp_mapping_tpu_torch slam [DIRECTORY] [--plane-ba] [--device cpu]
+    python -m aicp_mapping_tpu_torch slam [DIRECTORY] [--plane-ba] [--pipelined]
+    python -m aicp_mapping_tpu_torch replay DIRECTORY [--config YAML]
+    python -m aicp_mapping_tpu_torch accumulate DIRECTORY -o OUT.pcd
+    python -m aicp_mapping_tpu_torch localize DIRECTORY --map MAP.pcd
 
 register   register one reading/reference scan pair: octree overlap, kNN
            normals, FOV overlap, alignability, the risk classifier,
@@ -9,19 +12,29 @@ register   register one reading/reference scan pair: octree overlap, kNN
            (the JAX package's `register`, the reference's aicp-registration
            pair tool).
 slam       end-to-end SLAM over a recorded sequence directory or a
-           synthetic loop: AICP front-end -> overlap-ranked, ICP-verified
-           loop closures -> pose-graph optimization -> optional plane BA;
-           prints the JAX package's `slam` summary as JSON. The mesh-sharded
-           back-end (`--mesh-devices` > 1) and the pipelined front-end
-           (`--pipelined`) are not ported (ROADMAP Q1 #13, #8) and raise.
+           synthetic loop: AICP front-end (`--pipelined`: through the
+           submission pipeline) -> overlap-ranked, ICP-verified loop
+           closures -> pose-graph optimization -> optional plane BA;
+           prints the JAX package's `slam` summary as JSON. The
+           mesh-sharded back-end (`--mesh-devices` > 1) is ROADMAP Q1 #13
+           and raises.
+replay     replay a recorded sequence directory through the App; prints
+           frame counts, writes the trajectory (`--live-viz`, the JAX
+           package's live viewer, is ROADMAP Q1 #14 and raises).
+accumulate concatenate a recorded sequence's scans into one odom-frame
+           cloud (range crop, optional voxel grid) and write it as PCD.
+localize   localize a recorded sequence against a prior map on one device
+           (`--mesh-devices` > 1 is ROADMAP Q1 #13 and raises).
 
-Both run on the card unless `--device cpu` is given. The JAX package's
-other subcommands are not ported yet (ROADMAP Q1 #14).
+The commands that run the App run on the card unless `--device cpu` is
+given. The JAX package's other subcommands are not ported yet (ROADMAP
+Q1 #14).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -189,6 +202,98 @@ def _cmd_slam(args) -> int:
     return 0
 
 
+def _cmd_replay(args) -> int:
+    from .io.poses import write_kitti_poses
+    from .pipeline.app import App
+    from .pipeline.config import PipelineConfig, load_yaml_config
+    from .pipeline.sequence import SequenceRunner
+
+    if args.live_viz is not None:
+        raise NotImplementedError(
+            "replay --live-viz: the live viewer is ROADMAP Q1 #14")
+    cfg = load_yaml_config(args.config) if args.config else PipelineConfig()
+    app = App(cfg, device=args.device)
+    try:
+        results = SequenceRunner(app).run_directory(args.directory)
+    finally:
+        app.close()
+    ok = [r for r in results if r is not None]
+    print(json.dumps({
+        "frames": len(results),
+        "accepted": sum(1 for r in ok if r.accepted),
+        "registered": sum(1 for r in ok if r.registered),
+    }, indent=2))
+    if args.output_poses:
+        write_kitti_poses(args.output_poses,
+                          np.stack([r.corrected_pose for r in ok]))
+    return 0
+
+
+def _cmd_accumulate(args) -> int:
+    from .io.pcd import read_cloud, write_pcd
+    from .io.poses import read_pose_csv
+    from .native import ScanAccumulator, voxel_downsample
+
+    poses = read_pose_csv(os.path.join(args.directory,
+                                       "aicp_input_poses.csv"))
+    if args.max_scans:
+        poses = poses[:args.max_scans]
+    acc = ScanAccumulator(capacity=args.capacity, batch_size=len(poses),
+                          min_range=args.min_range, max_range=args.max_range)
+    used = 0
+    for p in poses:
+        path = os.path.join(args.directory,
+                            f"cloud_{p.counter}_{p.sec}_{p.nsec}.pcd")
+        if not os.path.exists(path):
+            continue
+        pts, _ = read_cloud(path)
+        acc.push(pts, p.pose)
+        used += 1
+    merged = acc.take()
+    if args.voxel > 0:
+        merged = voxel_downsample(merged, args.voxel)
+    write_pcd(args.output, merged)
+    print(json.dumps({"scans": used, "points": len(merged),
+                      "output": args.output}))
+    return 0
+
+
+def _cmd_localize(args) -> int:
+    from .io.pcd import read_cloud
+    from .io.poses import read_pose_csv, write_kitti_poses
+    from .parallel import ShardedMapLocalizer
+
+    if args.mesh_devices > 1:
+        raise NotImplementedError(
+            "localize --mesh-devices > 1: the map sharded over a device "
+            "mesh is ROADMAP Q1 #13")
+    map_pts, _ = read_cloud(args.map)
+    loc = ShardedMapLocalizer(map_pts, trim_ratio=args.trim_ratio,
+                              max_correction_magnitude=args.max_correction,
+                              device=args.device)
+    poses = read_pose_csv(os.path.join(args.directory,
+                                       "aicp_input_poses.csv"))
+    out = []
+    for p in poses:
+        pts, _ = read_cloud(os.path.join(
+            args.directory, f"cloud_{p.counter}_{p.sec}_{p.nsec}.pcd"))
+        # recorded clouds are in the odom frame; the localizer takes the
+        # sensor frame
+        pose = np.asarray(p.pose, np.float64)
+        local = (pts - pose[:3, 3]) @ pose[:3, :3]
+        out.append(loc.localize(local.astype(np.float32), p.pose))
+    if args.output_poses:
+        write_kitti_poses(args.output_poses, np.stack(out))
+    print(json.dumps({
+        "frames": len(out),
+        "map_points": int(len(map_pts)),
+        "mesh_devices": args.mesh_devices,
+        "final_pose_t": [round(float(v), 4) for v in out[-1][:3, 3]],
+        "output": args.output_poses or "",
+    }))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="aicp_mapping_tpu_torch", description=__doc__,
@@ -219,7 +324,8 @@ def build_parser() -> argparse.ArgumentParser:
     sl.add_argument("--seed", type=int, default=2)
     sl.add_argument("--config", help="AICP YAML config")
     sl.add_argument("--pipelined", action="store_true",
-                    help="pipelined front-end (not ported: raises)")
+                    help="drive the front-end through the submission "
+                         "pipeline")
     sl.add_argument("--mesh-devices", type=int, default=1,
                     help=">1: edge-sharded PGO (not ported: raises)")
     sl.add_argument("--min-loop-overlap", type=float, default=30.0)
@@ -234,6 +340,41 @@ def build_parser() -> argparse.ArgumentParser:
     sl.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
     sl.set_defaults(func=_cmd_slam)
+
+    rp = sub.add_parser("replay", help="replay a recorded sequence directory")
+    rp.add_argument("directory")
+    rp.add_argument("--config", help="AICP YAML config")
+    rp.add_argument("--output-poses", help="write KITTI-format trajectory")
+    rp.add_argument("--live-viz", type=int, default=None, metavar="PORT",
+                    help="live viewer (not ported: raises)")
+    rp.add_argument("--device", default="cuda",
+                    help="torch device (default: the card)")
+    rp.set_defaults(func=_cmd_replay)
+
+    ac = sub.add_parser("accumulate",
+                        help="accumulate a recorded sequence into one cloud")
+    ac.add_argument("directory", help="record/replay sequence directory")
+    ac.add_argument("-o", "--output", required=True)
+    ac.add_argument("--max-scans", type=int, default=0)
+    ac.add_argument("--capacity", type=int, default=1 << 21)
+    ac.add_argument("--min-range", type=float, default=0.5)
+    ac.add_argument("--max-range", type=float, default=30.0)
+    ac.add_argument("--voxel", type=float, default=0.0)
+    ac.set_defaults(func=_cmd_accumulate)
+
+    lz = sub.add_parser(
+        "localize", help="localize a recorded sequence against a prior map")
+    lz.add_argument("directory", help="recorded sequence dir")
+    lz.add_argument("--map", required=True, help="prior map (.pcd/.bin)")
+    lz.add_argument("--mesh-devices", type=int, default=1,
+                    help=">1: the map sharded over a mesh (not ported: "
+                         "raises)")
+    lz.add_argument("--trim-ratio", type=float, default=0.7)
+    lz.add_argument("--max-correction", type=float, default=0.5)
+    lz.add_argument("--output-poses", default="")
+    lz.add_argument("--device", default="cuda",
+                    help="torch device (default: the card)")
+    lz.set_defaults(func=_cmd_localize)
     return p
 
 

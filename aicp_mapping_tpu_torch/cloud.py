@@ -1,7 +1,11 @@
 """Padded, masked point-cloud containers, PyTorch port of
 `aicp_mapping_tpu.cloud`. Points live in tensors on an explicit device;
-poses stay host numpy. The int16 wire formats are not ported yet (ROADMAP
-Q1 #8).
+poses stay host numpy.
+
+The int16 wire format ships a cloud as fixed-point offsets `q` with a
+per-axis `scale` and `center` and rebuilds the mask on the device from the
+count. The device dequantizes `q * scale + center` rounded once, as a
+fused multiply-add (`_dequantize`): the same bits on the CPU and the card.
 """
 from __future__ import annotations
 
@@ -12,6 +16,33 @@ import numpy as np
 import torch
 
 from .geometry import se3
+from .native import quantize_q16
+
+
+def _fma_f32(q: torch.Tensor, scale: torch.Tensor,
+             center: torch.Tensor) -> torch.Tensor:
+    """`q * scale + center` in f32, rounded once: the int16 x f32 product
+    is exact in f64, the f64 sum is rounded to odd (its exact remainder by
+    two-sum decides), and one rounding to f32 then gives the correctly
+    rounded result on any device."""
+    p = q.to(torch.float64) * scale.to(torch.float64)
+    c = center.to(torch.float64).expand_as(p)
+    s = p + c
+    bp = s - c
+    err = (p - bp) + (c - (s - bp))
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)
+
+
+def _dequantize(q: torch.Tensor, scale: torch.Tensor, center: torch.Tensor,
+                count) -> "Cloud":
+    """The device side of the int16 wire format: points and the mask of the
+    first `count` rows, on `q`'s device."""
+    mask = torch.arange(q.shape[0], device=q.device) < int(count)
+    return Cloud(_fma_f32(q, scale, center), mask)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,19 +67,36 @@ class Cloud:
 
     @staticmethod
     def from_numpy(arr: np.ndarray, capacity: Optional[int] = None,
-                   device=None) -> "Cloud":
-        """Pad (or deterministically subsample) to `capacity`."""
+                   device=None, quantize: bool = False) -> "Cloud":
+        """Pad (or deterministically subsample) to `capacity`. With
+        `quantize` the points cross to the device as int16 (6 bytes a
+        point and no mask) and are dequantized there."""
         arr = np.asarray(arr, dtype=np.float32).reshape(-1, 3)
         n = arr.shape[0]
         cap = capacity if capacity is not None else n
         if n > cap:
             arr = arr[np.linspace(0, n - 1, cap).astype(np.int64)]
             n = cap
+        if quantize and n > 0:
+            q = np.zeros((cap, 3), dtype=np.int16)
+            q[:n], scale, center = quantize_q16(arr)
+            return Cloud.from_wire_q16(q, scale, center, n, device=device)
         pts = np.zeros((cap, 3), dtype=np.float32)
         pts[:n] = arr
         mask = np.zeros((cap,), dtype=bool)
         mask[:n] = True
         return Cloud.from_numpy_padded(pts, mask, device=device)
+
+    @staticmethod
+    def from_wire_q16(q: np.ndarray, scale: np.ndarray, center: np.ndarray,
+                      count: int, device=None) -> "Cloud":
+        """Ship a quantized payload (`native.voxel_downsample_q16`) to
+        `device` and dequantize it there."""
+        def put(a, dtype):
+            return torch.as_tensor(np.asarray(a, dtype), device=device)
+
+        return _dequantize(put(q, np.int16), put(scale, np.float32),
+                           put(center, np.float32), count)
 
     @staticmethod
     def from_numpy_padded(points: np.ndarray, mask: np.ndarray,

@@ -53,7 +53,7 @@ def app_state_to_numpy(app: App) -> dict:
                           else np.array(app._ref_pose, np.float32)),
                 total_correction=np.array(app.total_correction, np.float32),
                 graph_ids=(app.graph.n_clouds,
-                           app.graph.current_reference_id, app._since_ref,
+                           app.graph.current_reference_id, app._since_ref_disp,
                            int(app._registered_any)),
                 prior_map=None if prior is None else prior.to_numpy(),
                 aligned_map=np.array(app.aligned_map_np))
@@ -80,8 +80,8 @@ def app_state_from_numpy(app: App, ref_points, ref_mask, ref_normals,
             torch.as_tensor(np.asarray(ref_normals, np.float32), device=dev))
     app._ref_pose = (None if ref_pose is None
                      else np.array(ref_pose, np.float32))
-    app.total_correction = np.array(total_correction, np.float32)
-    app._since_ref = since_ref
+    app._set_total(np.array(total_correction, np.float32))
+    app._since_ref_disp = since_ref
     app._registered_any = bool(registered[0]) if registered else n_clouds > 0
     if prior_map is not None:
         app.prior_map = app._map_cloud(prior_map)

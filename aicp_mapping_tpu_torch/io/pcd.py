@@ -102,7 +102,10 @@ def read_pcd(path: str):
     with open(path, "rb") as f:
         header = {}
         while True:
-            line = f.readline().decode("ascii", errors="replace").strip()
+            raw_line = f.readline()
+            if not raw_line:
+                raise IOError(f"{path}: no DATA line in the PCD header")
+            line = raw_line.decode("ascii", errors="replace").strip()
             if not line or line.startswith("#"):
                 continue
             key, _, value = line.partition(" ")

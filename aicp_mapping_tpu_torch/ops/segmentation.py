@@ -16,6 +16,8 @@ all sorts are stable, and the two-key sorts use one composite int64 key.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from .banded_nn import SENTINEL, morton_codes
@@ -220,16 +222,25 @@ def _balanced_compaction_perm(labels: torch.Tensor,
 
 
 # Rounds run by `label_propagation_clusters` since the last reset: each
-# round reads one flag back to the host.
+# round reads one flag back to the host. The lock: an App's finalizer
+# thread may run a prefilter while its dispatch thread runs another.
 _propagation = {"calls": 0, "rounds": 0}
+_propagation_lock = threading.Lock()
 
 
 def propagation_rounds() -> dict:
-    return dict(_propagation)
+    with _propagation_lock:
+        return dict(_propagation)
 
 
 def reset_propagation_rounds() -> None:
-    _propagation.update(calls=0, rounds=0)
+    with _propagation_lock:
+        _propagation.update(calls=0, rounds=0)
+
+
+def _count_propagation(key: str) -> None:
+    with _propagation_lock:
+        _propagation[key] += 1
 
 
 def label_propagation_clusters(points, mask, normals, curvature, k: int = 15,
@@ -260,7 +271,7 @@ def label_propagation_clusters(points, mask, normals, curvature, k: int = 15,
     can_forward = (curvature <= curvature_thresh) & mask
     pull_ok = nbr_ok & can_forward[idx]
     labels = torch.where(mask, torch.arange(n, device=points.device), n)
-    _propagation["calls"] += 1
+    _count_propagation("calls")
     for _ in range(max_iters):
         pulled = torch.where(pull_ok, labels[idx], n).amin(1)
         new = torch.minimum(labels, pulled)
@@ -270,7 +281,7 @@ def label_propagation_clusters(points, mask, normals, curvature, k: int = 15,
         new = torch.where(mask, new, n)
         changed = bool((new != labels).any())
         labels = new
-        _propagation["rounds"] += 1
+        _count_propagation("rounds")
         if not changed:
             break
     return torch.where(mask, labels, -1)

@@ -4,26 +4,38 @@
 Host Python makes the per-frame decisions (bootstrap, reference policy,
 gates' bookkeeping); the frame step (`pipeline.fused.make_app_frame_step`)
 runs on `App(config, device=...)`'s device — the card unless the caller
-asks for the CPU — and each frame reads its scalars back to the host once.
+asks for the CPU.
 
-Ported: bootstrap on the first cloud, the graph-reference policy (windowed
-update every `reference_update_frequency` clouds), failure prediction
-(`failure_prediction_mode`: FOV overlap, alignability and the risk
-classifier, given as `classifier=` or loaded from `classifier_path` at
-`risk_threshold`) whose risk gate, like the `min_overlap_percent` gate,
-discards the correction and forces a reference update, the accept gate with
-the first-registration exemption, robot and debug working modes,
-total-correction chaining, the synchronous `process_cloud`, and the map
-modes: a prior map (`set_prior_map`, or an external `reference_provider`
-such as `parallel.ShardedMapLocalizer`) with the overlap pinned at 50, the
-built map and `go_back_to_map`, `load_map_from_file`'s first-frame
-reference, and `merge_aligned_clouds_to_map`. Pipelined submission, the wire
-formats and `debug_dir` dumps raise until their ROADMAP items land; there is
-no visualizer.
+A frame is dispatched by `submit_cloud` and finalized later: up to
+`pipeline_depth` frames are in flight, the oldest `pipeline_depth // 2`
+are finalized together once the window is full, and `flush` finalizes the
+rest. Dispatch chains the total correction on the device (each step takes
+the previous step's `new_total`), adopts a windowed reference update
+speculatively, and copies the frame's scalars to pinned host memory behind
+a CUDA event; finalize waits on those events only, then runs the host
+bookkeeping (gates, graph, maps), rolling a rejected frame's speculative
+reference back unless a later frame adopted a newer one (the `_ref_gen`
+generation token). With `async_finalize` a finalizer thread does the
+waiting and the bookkeeping, its errors raised at the next `drain_results`
+or `flush`. `process_cloud` is submit + flush: the synchronous path.
+
+Also: failure prediction (FOV overlap, alignability, the risk classifier
+and its gate; the `min_overlap_percent` gate) discarding the correction
+and forcing a reference update, the accept gate with the
+first-registration exemption, robot and debug working modes, the map
+modes (a prior map or an external `reference_provider` such as
+`parallel.ShardedMapLocalizer` with the overlap pinned at 50, the built
+map and `go_back_to_map`, `load_map_from_file`,
+`merge_aligned_clouds_to_map`), `debug_dir` PCD dumps, `correct_pose` and
+`inject_correction`. There is no visualizer (ROADMAP Q1 #14).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
+import queue
+import threading
 from typing import Optional
 
 import numpy as np
@@ -31,6 +43,7 @@ import torch
 
 from ..classification.classifier import RiskClassifier
 from ..cloud import AlignedCloud, AlignedCloudsGraph, Cloud
+from ..io.pcd import write_pcd
 from ..ops.normals import radius_normals
 from ..ops.voxel import crop_box
 from .config import PipelineConfig
@@ -57,16 +70,6 @@ class FrameResult:
     filtered_size: int
 
 
-def _unsupported(cfg: PipelineConfig) -> list:
-    checks = (
-        (cfg.async_finalize, "async finalize (ROADMAP Q1 #8)"),
-        (cfg.quantized_upload or cfg.wire_voxel > 0.0,
-         "wire formats: quantized_upload / wire_voxel (ROADMAP Q1 #8)"),
-        (bool(cfg.debug_dir), "debug_dir PCD dumps (ROADMAP Q1 #14)"),
-    )
-    return [what for bad, what in checks if bad]
-
-
 def check_device(device, who: str) -> torch.device:
     """`device` as a torch.device; a CUDA device without a card raises (an
     entry point never falls back to the CPU)."""
@@ -77,13 +80,54 @@ def check_device(device, who: str) -> torch.device:
     return dev
 
 
+class _Scalars:
+    """One frame's scalars on their way to the host (the gated and raw
+    corrections and the new total, 16 each, then risk_ok, accepted,
+    overlap, FOV overlap, alignability, risk, inlier rms and the filtered
+    count). On a card the dispatch copies them into pinned host memory
+    with `non_blocking` and records a CUDA event behind the copy on its
+    stream; `get` waits on that event, not on the whole device."""
+
+    def __init__(self, out):
+        vec = torch.cat([
+            out.correction.reshape(-1), out.correction_raw.reshape(-1),
+            out.new_total.reshape(-1),
+            torch.stack([out.risk_ok.float(), out.accepted.float(),
+                         out.overlap_percent, out.fov_overlap,
+                         out.alignability, out.risk, out.inlier_rms,
+                         out.filtered_count.float()])])
+        self.stream = self.event = None
+        if vec.device.type == "cuda":
+            self.host = torch.empty(vec.shape, dtype=vec.dtype,
+                                    pin_memory=True)
+            self.host.copy_(vec, non_blocking=True)
+            self.stream = torch.cuda.current_stream(vec.device)
+            self.event = torch.cuda.Event()
+            self.event.record(self.stream)
+        else:
+            self.host = vec
+
+    def get(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+    def on_stream(self):
+        """Device work of the frame's finalize goes on its dispatch's
+        stream (a finalizer thread has its own current stream)."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+
 class App:
     def __init__(self, config: PipelineConfig, device="cuda",
                  reference_provider=None,
-                 classifier: Optional[RiskClassifier] = None):
-        missing = _unsupported(config)
-        if missing:
-            raise NotImplementedError("not ported yet: " + "; ".join(missing))
+                 classifier: Optional[RiskClassifier] = None,
+                 visualizer=None):
+        if visualizer is not None:
+            raise NotImplementedError(
+                "App(visualizer=...): the visualizers are ROADMAP Q1 #14")
         self.device = check_device(device, "App")
         self.cfg = config
         # Optional external reference for prior-map localization: any
@@ -91,16 +135,33 @@ class App:
         # tensors on this App's device (parallel.ShardedMapLocalizer).
         self.reference_provider = reference_provider
         self.graph = AlignedCloudsGraph()
+        # The total correction: a host mirror refreshed at finalize, and
+        # its device twin chained through each dispatched step's new_total
+        # (under pipelining the host value is up to pipeline_depth frames
+        # stale).
         self.total_correction = np.eye(4, dtype=np.float32)
+        self._total_dev = torch.eye(4, device=self.device)
+        self.updates_counter = 0
         self.frames: list[FrameResult] = []
         # Current graph reference on the device: (points, mask, normals),
-        # its world pose, and clouds added since it was adopted.
+        # its world pose, clouds dispatched since it was adopted, and a
+        # generation token bumped at every adoption or rollback.
         self._ref_device: Optional[tuple] = None
         self._ref_pose: Optional[np.ndarray] = None
-        self._since_ref = 0
-        # True once a registration frame has run: only the first
-        # registration into an empty graph is exempt from the accept gate.
+        self._since_ref_disp = 0
+        self._ref_gen = 0
+        # True once a registration frame has been dispatched: only the
+        # first registration into an empty graph is exempt from the accept
+        # gate.
         self._registered_any = False
+        # Frames dispatched and not yet finalized, oldest first.
+        self._pending: list[dict] = []
+        # _state_lock serializes dispatch and finalize bookkeeping; the
+        # async finalizer waits for the device outside it.
+        self._state_lock = threading.RLock()
+        self._fin_queue: Optional[queue.Queue] = None
+        self._fin_results: list[FrameResult] = []
+        self._fin_error: Optional[Exception] = None
         # Prior map (a Cloud at map capacity) and the built map: reference
         # clouds appended as device clouds, materialized to numpy lazily.
         self.prior_map: Optional[Cloud] = None
@@ -118,9 +179,20 @@ class App:
             with_classifier=has_clf)
         self._clf_params = (tuple(dataclasses.astuple(
             self.classifier.model.to(self.device))) if has_clf else ())
+        if config.async_finalize:
+            self._fin_queue = queue.Queue()
+            self._fin_thread = threading.Thread(
+                target=self._finalizer_loop, name="aicp-finalizer",
+                daemon=True)
+            self._fin_thread.start()
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def _set_total(self, total) -> None:
+        """Set the total correction on the host and the device."""
+        self.total_correction = np.asarray(total, np.float32)
+        self._total_dev = self._tensor(self.total_correction)
 
     # ------------------------------------------------------------------
     # maps
@@ -166,10 +238,9 @@ class App:
                           world_to_body: np.ndarray) -> None:
         """Seed the total correction with pose_in_map @ odometry^-1, so
         corrected poses start in the map frame."""
-        self.total_correction = (
+        self._set_total(
             np.asarray(pose_in_map, np.float32)
-            @ np.linalg.inv(np.asarray(world_to_body, np.float32))
-        ).astype(np.float32)
+            @ np.linalg.inv(np.asarray(world_to_body, np.float32)))
 
     def go_back_to_map(self) -> None:
         """Go-back service: the built map becomes the prior map and the App
@@ -219,28 +290,46 @@ class App:
     # ------------------------------------------------------------------
     # frames
     # ------------------------------------------------------------------
-    def submit_cloud(self, cloud: AlignedCloud):
-        raise NotImplementedError(
-            "pipelined submission: ROADMAP Q1 #8; use process_cloud")
+    def process_cloud(self, cloud: AlignedCloud) -> Optional[FrameResult]:
+        """The synchronous entry point: dispatch the frame and finalize
+        everything in flight."""
+        first = self.submit_cloud(cloud)
+        res = self.flush()
+        if res:
+            return res[-1]
+        return first[-1] if first else None
 
-    def process_cloud(self, cloud: AlignedCloud) -> FrameResult:
-        """One frame: bootstrap on the first cloud (unless a map is the
-        reference), else the frame step and its host bookkeeping, with one
-        device-to-host read."""
+    def submit_cloud(self, cloud: AlignedCloud) -> list[FrameResult]:
+        """Dispatch this frame's step; once `pipeline_depth` frames are in
+        flight, finalize the oldest `pipeline_depth // 2` (with
+        `async_finalize`: hand them to the finalizer thread) and return the
+        results finished so far, in order (often none).
+
+        Under pipelining a risk-forced reference update or a rejection is
+        seen when its frame is finalized, so the frames dispatched in
+        between register against the speculatively chosen reference — the
+        JAX package's pipelined semantics."""
+        with self._state_lock:
+            return self._submit_cloud_locked(cloud)
+
+    def _submit_cloud_locked(self, cloud: AlignedCloud) -> list[FrameResult]:
         cfg = self.cfg
         if (_pre_voxelized(cfg, cloud.cloud.capacity)
                 and not cloud.cloud.pre_voxelized):
             raise ValueError(
                 "cloud at <= downsample_capacity would skip the device "
-                "voxel stage but was not host-voxelized; submit it at raw "
-                "capacity")
+                "voxel stage but was not host-voxelized; build it with "
+                "pipeline.sequence.wire_cloud (or submit at raw capacity)")
         points = cloud.cloud.points.to(self.device)
         mask = cloud.cloud.mask.to(self.device)
         if (not cfg.localize_against_prior_map and not cfg.load_map_from_file
-                and self.graph.is_empty()):
-            return self._bootstrap(cloud, points, mask)
+                and self.graph.is_empty() and not self._pending):
+            return [self._bootstrap(cloud, points, mask)]
 
         odom_pose = np.asarray(cloud.prior_pose, np.float32)
+        # the host's estimate of the reading's pose (stale under
+        # pipelining): it steers the map crop and the risk stage's
+        # reference pose only; the step applies the device total itself
         debug = cfg.working_mode != "robot"
         pose_est = self.total_correction @ odom_pose if debug else odom_pose
         (ref_pts, ref_mask, ref_normals, ref_pose, ref_id,
@@ -251,56 +340,148 @@ class App:
         allow_large = self.graph.is_empty() and not self._registered_any
         self._registered_any = True
         out = self._app_step(points, mask, self._tensor(odom_pose),
-                             self._tensor(self.total_correction), ref_pts,
-                             ref_normals, ref_mask, self._tensor(ref_pose),
-                             fixed_overlap, allow_large, *self._clf_params)
+                             self._total_dev, ref_pts, ref_normals, ref_mask,
+                             self._tensor(ref_pose), fixed_overlap,
+                             allow_large, *self._clf_params)
+        self._total_dev = out.new_total
 
-        # Reference update in graph mode: adopt this frame's aligned outputs
-        # (rolled back below if the frame is rejected) — the loaded map's
-        # first frame, or the windowed update.
-        saved_ref = (self._ref_device, self._ref_pose, self._since_ref)
-        update = None
+        # Speculative reference update in graph mode: adopt this frame's
+        # aligned outputs (the loaded map's first frame, or the windowed
+        # update); finalize keeps or rolls it back.
+        saved_ref = (self._ref_device, self._ref_pose, self._since_ref_disp)
+        spec_update = None
         if (not cfg.localize_against_prior_map
                 and not cfg.localize_against_built_map):
-            self._since_ref += 1
+            self._since_ref_disp += 1
             if cfg.load_map_from_file and self._ref_device is None:
-                update = "loadmap"
-            elif self._since_ref % cfg.reference_update_frequency == 0:
-                update = "window"
-            if update:
+                spec_update = "loadmap"
+            elif self._since_ref_disp % cfg.reference_update_frequency == 0:
+                spec_update = "window"
+            if spec_update:
                 self._ref_device = (out.aligned_points, out.filtered_mask,
                                     out.aligned_normals)
                 self._ref_pose = pose_est
-                self._since_ref = 0
+                self._since_ref_disp = 0
+                self._ref_gen += 1
 
-        # the frame's one device-to-host read
-        host = torch.cat([
-            out.correction.reshape(-1), out.correction_raw.reshape(-1),
-            out.new_total.reshape(-1),
-            torch.stack([out.risk_ok.float(), out.accepted.float(),
-                         out.overlap_percent, out.fov_overlap,
-                         out.alignability, out.risk, out.inlier_rms,
-                         out.filtered_count.float()])]).cpu().numpy()
+        self._pending.append(dict(
+            cloud=cloud, out=out, scalars=_Scalars(out),
+            n_iter=out.n_iterations, ref_id=ref_id, odom_pose=odom_pose,
+            saved_ref=saved_ref, spec_update=spec_update,
+            ref_gen=self._ref_gen))
+        depth = max(int(cfg.pipeline_depth), 1)
+        if len(self._pending) < depth:
+            return []
+        # finalize only the oldest half: the youngest frames' work may
+        # still be running
+        n = max(1, depth // 2)
+        batch, self._pending = self._pending[:n], self._pending[n:]
+        if self._fin_queue is not None:
+            self._fin_queue.put(batch)
+            return self._drain_results_locked()
+        return self._finalize_batch(batch)
+
+    def flush(self) -> list[FrameResult]:
+        """Finalize every frame in flight and return the results not yet
+        delivered."""
+        if self._fin_queue is not None:
+            with self._state_lock:
+                batch, self._pending = self._pending, []
+                if batch:
+                    self._fin_queue.put(batch)
+            self._fin_queue.join()
+            with self._state_lock:
+                return self._drain_results_locked()
+        with self._state_lock:
+            batch, self._pending = self._pending, []
+            return self._finalize_batch(batch)
+
+    def drain_results(self) -> list[FrameResult]:
+        """Async finalize: the results the finalizer thread finished since
+        the last call, in submission order."""
+        with self._state_lock:
+            return self._drain_results_locked()
+
+    def _drain_results_locked(self) -> list[FrameResult]:
+        if self._fin_error is not None:
+            err, self._fin_error = self._fin_error, None
+            raise RuntimeError("async finalize failed") from err
+        out, self._fin_results = self._fin_results, []
+        return out
+
+    def _finalizer_loop(self) -> None:
+        """The async finalizer: waits for a batch's scalars outside the
+        state lock, then runs its bookkeeping under it. One thread and a
+        FIFO queue keep the results in submission order; an error is kept
+        for the next drain_results / flush."""
+        q = self._fin_queue
+        while True:
+            batch = q.get()
+            try:
+                if batch is None:
+                    return
+                hosts = [p["scalars"].get() for p in batch]
+                with self._state_lock, batch[0]["scalars"].on_stream():
+                    self._fin_results.extend(
+                        self._finalize(p, h) for p, h in zip(batch, hosts))
+            except Exception as e:   # raised at the next drain / flush
+                self._fin_error = e
+            finally:
+                q.task_done()
+
+    def close(self) -> None:
+        """Finalize what is in flight and stop the finalizer thread (no-op
+        without async finalize)."""
+        if self._fin_queue is None:
+            return
+        try:
+            self.flush()
+        finally:
+            self._fin_queue.put(None)
+            self._fin_thread.join(timeout=60)
+            self._fin_queue = None
+
+    def _finalize_batch(self, batch: list) -> list[FrameResult]:
+        """Finalize `batch` on this thread: wait for its scalars, then the
+        bookkeeping of each frame in order."""
+        hosts = [p["scalars"].get() for p in batch]
+        return [self._finalize(p, h) for p, h in zip(batch, hosts)]
+
+    def _finalize(self, pending: dict, host: np.ndarray) -> FrameResult:
+        """The host tail of a frame: gates, graph bookkeeping, maps."""
+        cfg = self.cfg
+        cloud: AlignedCloud = pending["cloud"]
+        out = pending["out"]
+        ref_id = pending["ref_id"]
+        if ref_id is None:      # graph reference: resolved here
+            ref_id = self.graph.current_reference_id
         correction = host[0:16].reshape(4, 4)
         correction_raw = host[16:32].reshape(4, 4)
         new_total = host[32:48].reshape(4, 4)
         (risk_ok, accepted, overlap, fov, align, risk, rms,
          fsize) = host[48:56].tolist()
         risk_ok, accepted = bool(risk_ok), bool(accepted)
-        n_iter = out.n_iterations if risk_ok else 0
+        n_iter = pending["n_iter"] if risk_ok else 0
         rms = rms if risk_ok else 0.0
         fsize = int(fsize)
-        if ref_id is None:
-            ref_id = self.graph.current_reference_id
 
-        if debug:
-            # host mirror of the device-side pre-transform
-            cloud.prior_pose = self.total_correction @ odom_pose
+        if cfg.working_mode != "robot":
+            # host mirror of the device-side pre-transform by the total
+            # correction accumulated before this frame
+            cloud.prior_pose = self.total_correction @ pending["odom_pose"]
             cloud.corrected_pose = cloud.prior_pose
+        read_f = Cloud(out.filtered_points, out.filtered_mask)
+        if cfg.debug_dir:
+            self._dump_debug_cloud(read_f, "prefiltered")
 
         if not accepted:
-            # wrong alignment: frame dropped, speculative reference undone
-            self._ref_device, self._ref_pose, self._since_ref = saved_ref
+            # wrong alignment: frame dropped; its speculative reference is
+            # undone unless a later frame has adopted a newer one (the
+            # device total needs no undo: it chained I @ prev_total)
+            if self._ref_gen == pending["ref_gen"]:
+                (self._ref_device, self._ref_pose,
+                 self._since_ref_disp) = pending["saved_ref"]
+                self._ref_gen += 1
             return self._record(FrameResult(
                 utime=cloud.utime, reference_id=ref_id,
                 reading_id=self.graph.n_clouds, octree_overlap=overlap,
@@ -311,13 +492,21 @@ class App:
                 filtered_size=fsize))
 
         if risk_ok:
-            cloud.update(Cloud(out.aligned_points, out.filtered_mask),
-                         correction, is_reference=False,
+            aligned = Cloud(out.aligned_points, out.filtered_mask)
+            if cfg.debug_dir:
+                self._dump_debug_cloud(aligned, "aligned")
+            cloud.update(aligned, correction, is_reference=False,
                          its_reference_id=self.graph.current_reference_id)
             self.graph.add(cloud)
-            if update:
+            if pending["spec_update"]:
+                # the dispatch side decided the update; finalize keeps the
+                # graph in step and, while this frame's adoption is still
+                # current, refines its pose to the corrected one
                 self.graph.update_reference(self.graph.n_clouds - 1)
-                self._ref_pose = np.asarray(cloud.corrected_pose)
+                if pending["spec_update"] == "window":
+                    self.updates_counter += 1
+                if self._ref_gen == pending["ref_gen"]:
+                    self._ref_pose = np.asarray(cloud.corrected_pose)
             elif (cfg.localize_against_built_map
                   and not cfg.localize_against_prior_map):
                 # built-map mode registers against the cropped map; the
@@ -326,42 +515,42 @@ class App:
                          - (self.graph.current_reference_id + 1))
                 if since % cfg.reference_update_frequency == 0:
                     self.graph.update_reference(self.graph.n_clouds - 1)
+                    self.updates_counter += 1
         else:
             # risk or overlap gated: trust the prior for one step, force a
             # reference update
-            cloud.update(Cloud(out.filtered_points, out.filtered_mask),
-                         is_reference=True,
+            cloud.update(read_f, is_reference=True,
                          its_reference_id=self.graph.current_reference_id)
             self.graph.add(cloud)
             self.graph.update_reference(self.graph.n_clouds - 1)
+            self.updates_counter += 1
             self._ref_device = (out.filtered_points, out.filtered_mask,
                                 out.filtered_normals)
             self._ref_pose = np.asarray(cloud.corrected_pose)
-            self._since_ref = 0
+            self._since_ref_disp = 0
+            self._ref_gen += 1
 
         self.total_correction = new_total
         last = self.graph.last()
+        n_prev = self.graph.n_clouds - 1
+        merging = (cfg.localize_against_prior_map
+                   and cfg.merge_aligned_clouds_to_map
+                   and self.prior_map is not None)
         if last.is_reference:
             self._map_pending.append(last.cloud)
             self._map_np = None
-        elif (cfg.localize_against_prior_map and cfg.merge_aligned_clouds_to_map
-              and self.prior_map is not None
-              and (self.graph.n_clouds - 1)
-              % cfg.reference_update_frequency == 0):
+        elif merging and n_prev % cfg.reference_update_frequency == 0:
             self.prior_map = self._map_cloud(np.concatenate(
                 [self.prior_map.to_numpy(), last.cloud.to_numpy()]))
-        if (cfg.localize_against_prior_map and cfg.merge_aligned_clouds_to_map
-                and self.prior_map is not None
-                and (self.graph.n_clouds - 1) % 30 == 0):
+        if merging and n_prev % 30 == 0:
             # amortized prior-map re-filter every 30 clouds
             self.prior_map = self._map_cloud(self.filter_cloud(
                 self.prior_map, np.zeros(3, np.float32)).to_numpy())
         return self._record(FrameResult(
-            utime=cloud.utime, reference_id=ref_id,
-            reading_id=self.graph.n_clouds - 1, octree_overlap=overlap,
-            fov_overlap=fov, alignability=align, risk=risk,
-            correction=correction, accepted=True, registered=risk_ok,
-            n_iterations=n_iter, inlier_rms=rms,
+            utime=cloud.utime, reference_id=ref_id, reading_id=n_prev,
+            octree_overlap=overlap, fov_overlap=fov, alignability=align,
+            risk=risk, correction=correction, accepted=True,
+            registered=risk_ok, n_iterations=n_iter, inlier_rms=rms,
             corrected_pose=np.asarray(last.corrected_pose),
             filtered_size=fsize))
 
@@ -375,7 +564,7 @@ class App:
         self.graph.initialize(cloud)
         self._ref_device = (fpts, fmask, fnormals)
         self._ref_pose = np.asarray(cloud.corrected_pose)
-        self._since_ref = 0
+        self._ref_gen += 1
         self.aligned_map_np = filtered.to_numpy()
         return self._record(FrameResult(
             utime=cloud.utime, reference_id=0, reading_id=0,
@@ -388,3 +577,25 @@ class App:
     def _record(self, res: FrameResult) -> FrameResult:
         self.frames.append(res)
         return res
+
+    def _dump_debug_cloud(self, cloud: Cloud, tag: str) -> None:
+        """`debug_dir/cloud_<clouds in the graph:04d>_<tag>.pcd`, the JAX
+        package's debug dumps."""
+        os.makedirs(self.cfg.debug_dir, exist_ok=True)
+        write_pcd(os.path.join(
+            self.cfg.debug_dir,
+            f"cloud_{self.graph.n_clouds:04d}_{tag}.pcd"), cloud.to_numpy())
+
+    # ------------------------------------------------------------------
+    # outputs
+    # ------------------------------------------------------------------
+    def inject_correction(self, correction: np.ndarray) -> None:
+        """Fault injection: apply an artificial correction to the output
+        chain (the reference's fake pose-correction scripts)."""
+        self._set_total(np.asarray(correction, np.float32)
+                        @ self.total_correction)
+
+    def correct_pose(self, world_to_body: np.ndarray) -> np.ndarray:
+        """Live odometry composed with the latest total correction, without
+        waiting for a registration."""
+        return self.total_correction @ np.asarray(world_to_body, np.float32)

@@ -1,28 +1,100 @@
-"""Offline sequence runner + recorder and the synthetic sequence, PyTorch
-port of `aicp_mapping_tpu.pipeline.sequence`.
+"""Offline sequence runner + recorder, the wire preparation and the
+synthetic sequence, PyTorch port of `aicp_mapping_tpu.pipeline.sequence`.
 
-`SequenceRunner` feeds clouds through `App.process_cloud`: from memory
-(`run_clouds`) or from a recorded directory (`run_directory`:
-`aicp_input_poses.csv` + `cloud_<i>_<sec>_<nsec>.pcd`, read one by one with
-`io.pcd.read_cloud`; the JAX package's native prefetcher is not ported).
-It runs synchronously: pipelined submission, its threaded wire prep and
-the wire formats are ROADMAP Q1 #8. `SequenceRecorder` writes that
-layout.
+`SequenceRunner` feeds clouds through `App.process_cloud` or, with
+`pipelined=True`, `App.submit_cloud`: from memory (`run_clouds`, with the
+wire preparation on worker threads, in order) or from a recorded directory
+(`run_directory`: `aicp_input_poses.csv` + `cloud_<i>_<sec>_<nsec>.pcd`,
+read ahead by `native.SequencePrefetcher`). `wire_cloud` and `wire_batch`
+prepare clouds per the config's wire format (host voxel grid, int16
+upload); `SequenceRecorder` writes the directory layout.
 `synthetic_sequence` is a copy of the JAX function whose SO(3) exponential
 runs in numpy float32 instead of jax.numpy.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterable, Optional
 
 import numpy as np
+import torch
 
-from ..cloud import AlignedCloud, Cloud
-from ..io.pcd import read_cloud, write_pcd
+from .. import native
+from ..cloud import AlignedCloud, Cloud, _dequantize
+from ..io.pcd import write_pcd
 from ..io.poses import PoseWithTime, read_pose_csv, write_pose_csv
 from ..tools.synthetic import room_cloud
 from .app import FrameResult
+from .config import PipelineConfig
+
+
+def wire_cloud(cfg: PipelineConfig, pts: np.ndarray,
+               capacity: Optional[int] = None, device="cpu") -> Cloud:
+    """One cloud prepared per the config's wire format and put on
+    `device`: with `wire_voxel` the host voxel grid first (the cloud is then
+    marked `pre_voxelized`, at `downsample_capacity`), with
+    `quantized_upload` the int16 upload; else the raw f32 cloud at
+    `capacity` (default `raw_capacity`)."""
+    pts = np.asarray(pts, np.float32)
+    if cfg.wire_voxel > 0.0:
+        if cfg.quantized_upload:
+            q, scale, center, n = native.voxel_downsample_q16(
+                pts, cfg.wire_voxel, cfg.downsample_capacity)
+            cloud = Cloud.from_wire_q16(q, scale, center, n, device=device)
+        else:
+            cloud = Cloud.from_numpy(
+                native.voxel_downsample(pts, cfg.wire_voxel,
+                                        capacity=cfg.downsample_capacity),
+                capacity=cfg.downsample_capacity, device=device)
+        return dataclasses.replace(cloud, pre_voxelized=True)
+    cap = capacity if capacity is not None else cfg.raw_capacity
+    return Cloud.from_numpy(pts, capacity=cap, device=device,
+                            quantize=cfg.quantized_upload)
+
+
+def wire_batch(cfg: PipelineConfig, pts_list: list,
+               device="cpu") -> list[Cloud]:
+    """The quantized wire format (`wire_voxel` > 0 and `quantized_upload`)
+    for a batch of clouds: host voxel grid and int16 quantization per
+    cloud into one (B, downsample_capacity, 3) buffer, pinned on a card,
+    shipped by one host-to-device copy; each cloud is dequantized on the
+    device from its view of the batch."""
+    if not (cfg.wire_voxel > 0.0 and cfg.quantized_upload):
+        raise ValueError("wire_batch needs the quantized wire format "
+                         "(wire_voxel > 0 and quantized_upload)")
+    dev = torch.device(device)
+    pin = dev.type == "cuda"
+    B, cap = len(pts_list), cfg.downsample_capacity
+    qs = torch.empty((B, cap, 3), dtype=torch.int16, pin_memory=pin)
+    sc = torch.empty((2, B, 3), dtype=torch.float32, pin_memory=pin)
+    counts = []
+    for i, pts in enumerate(pts_list):
+        q, scale, center, n = native.voxel_downsample_q16(
+            np.asarray(pts, np.float32), cfg.wire_voxel, cap)
+        qs[i] = torch.from_numpy(q)
+        sc[0, i] = torch.from_numpy(scale)
+        sc[1, i] = torch.from_numpy(center)
+        counts.append(n)
+    # Non-blocking from pinned memory: the caching host allocator keeps
+    # these buffers until the copies on the current stream have run.
+    qd = qs.to(dev, non_blocking=pin)
+    scd = sc.to(dev, non_blocking=pin)
+    return [dataclasses.replace(_dequantize(qd[i], scd[0, i], scd[1, i], n),
+                                pre_voxelized=True)
+            for i, n in enumerate(counts)]
+
+
+def _on_stream(device: torch.device):
+    """A context that makes a worker thread enqueue on the caller's current
+    CUDA stream (each thread has its own), so the uploads it prepares are
+    ordered before the frames that read them."""
+    if device.type != "cuda":
+        return contextlib.nullcontext
+    stream = torch.cuda.current_stream(device)
+    return lambda: torch.cuda.stream(stream)
 
 
 def _yaw_transform(yaw: float, t) -> np.ndarray:
@@ -90,51 +162,103 @@ def synthetic_sequence(
 
 
 class SequenceRunner:
-    """Drives `App.process_cloud` frame by frame; results come out in
-    order. `pipelined=True` (the JAX package's depth-1 submission
-    pipeline) is ROADMAP Q1 #8 and raises."""
+    """Drives `App.process_cloud`, or with `pipelined=True`
+    `App.submit_cloud` (frames in flight up to the config's
+    `pipeline_depth`); results come out in order either way."""
 
     def __init__(self, app, raw_capacity: Optional[int] = None,
                  pipelined: bool = False):
-        if pipelined:
-            raise NotImplementedError(
-                "SequenceRunner(pipelined=True): pipelined submission is "
-                "ROADMAP Q1 #8")
         self.app = app
         self.raw_capacity = raw_capacity or app.cfg.raw_capacity
+        self.pipelined = pipelined
 
-    def _process(self, utime: int, pts: np.ndarray, pose) -> FrameResult:
-        cloud = Cloud.from_numpy(pts, capacity=self.raw_capacity,
-                                 device=self.app.device)
-        return self.app.process_cloud(AlignedCloud.create(
-            utime, cloud, np.asarray(pose, np.float32)))
+    def _drive(self, ac: AlignedCloud) -> list[FrameResult]:
+        if not self.pipelined:
+            return [self.app.process_cloud(ac)]
+        return self.app.submit_cloud(ac)
 
-    def run_directory(self, directory: str) -> list[FrameResult]:
-        """Replay a recorded sequence, reading each cloud when its frame
-        comes. A cloud over the raw capacity is cut to it by an even
-        stride, as the JAX package's loader does; unreadable files are
-        skipped."""
+    def run_directory(self, directory: str,
+                      prefetch_threads: int = 4) -> list[FrameResult]:
+        """Replay a recorded sequence, the files read ahead in order by
+        `native.SequencePrefetcher` (a cloud over the raw capacity cut by an
+        even stride; unreadable files skipped) and prepared per the
+        config's wire format."""
         poses = read_pose_csv(os.path.join(directory,
                                            "aicp_input_poses.csv"))
-        cap = self.raw_capacity
+        paths = [os.path.join(directory,
+                              f"cloud_{p.counter}_{p.sec}_{p.nsec}.pcd")
+                 for p in poses]
+        cfg, dev = self.app.cfg, self.app.device
+        wire = cfg.quantized_upload or cfg.wire_voxel > 0.0
         results = []
-        for p in poses:
-            path = os.path.join(directory,
-                                f"cloud_{p.counter}_{p.sec}_{p.nsec}.pcd")
-            try:
-                pts, _ = read_cloud(path)
-            except IOError:
-                continue
-            if len(pts) > cap:
-                pts = pts[(np.arange(cap) * (len(pts) / cap)).astype(
-                    np.int64)]
-            results.append(self._process(p.utime, pts, p.pose))
+        with native.SequencePrefetcher(paths, capacity=self.raw_capacity,
+                                       n_threads=prefetch_threads) as pf:
+            for idx, padded, count, _vp in pf:
+                p = poses[idx]
+                if wire:
+                    cloud = wire_cloud(cfg, padded[:count],
+                                       capacity=self.raw_capacity,
+                                       device=dev)
+                else:
+                    cloud = Cloud.from_numpy_padded(
+                        padded, np.arange(self.raw_capacity) < count,
+                        device=dev)
+                results.extend(self._drive(
+                    AlignedCloud.create(p.utime, cloud, p.pose)))
+        results.extend(self.app.flush())
         return results
 
-    def run_clouds(self, items: Iterable[tuple[int, np.ndarray, np.ndarray]]
+    def run_clouds(self, items: Iterable[tuple[int, np.ndarray, np.ndarray]],
+                   prep_workers: int = 1, prep_window: int = 2,
+                   batch_h2d: int = 0, flush: bool = True
                    ) -> list[FrameResult]:
-        """items: (utime, points (N, 3), prior_pose (4, 4))."""
-        return [self._process(*item) for item in items]
+        """items: (utime, points (N, 3), prior_pose (4, 4)).
+
+        The wire preparation (host voxel grid, quantization, upload) of up
+        to `prep_window` frames ahead runs on `prep_workers` threads and is
+        delivered in order. `batch_h2d` > 1 with the quantized wire format
+        prepares that many frames per task and uploads them in one copy
+        (`wire_batch`). `flush=False` leaves the submission pipeline full:
+        its frames' results come with the next call or `App.flush`. A
+        failed preparation raises here; nothing falls back."""
+        items = list(items)
+        cfg, dev = self.app.cfg, self.app.device
+        stream = _on_stream(dev)
+        results = []
+        if batch_h2d > 1 and cfg.wire_voxel > 0.0 and cfg.quantized_upload:
+            def prep(batch):
+                with stream():
+                    return wire_batch(cfg, [it[1] for it in batch], dev)
+
+            batches = [items[i:i + batch_h2d]
+                       for i in range(0, len(items), batch_h2d)]
+            with ThreadPoolExecutor(max_workers=1) as ex:
+                fut = ex.submit(prep, batches[0]) if batches else None
+                for bi, batch in enumerate(batches):
+                    clouds = fut.result()
+                    if bi + 1 < len(batches):
+                        fut = ex.submit(prep, batches[bi + 1])
+                    for (utime, _pts, pose), cloud in zip(batch, clouds):
+                        results.extend(self._drive(AlignedCloud.create(
+                            utime, cloud, np.asarray(pose, np.float32))))
+        else:
+            def prep(pts):
+                with stream():
+                    return wire_cloud(cfg, pts, self.raw_capacity, dev)
+
+            with ThreadPoolExecutor(max_workers=prep_workers) as ex:
+                futs = {i: ex.submit(prep, items[i][1])
+                        for i in range(min(prep_window, len(items)))}
+                for i, (utime, _pts, pose) in enumerate(items):
+                    cloud = futs.pop(i).result()
+                    nxt = i + len(futs) + 1
+                    if nxt < len(items):
+                        futs[nxt] = ex.submit(prep, items[nxt][1])
+                    results.extend(self._drive(AlignedCloud.create(
+                        utime, cloud, np.asarray(pose, np.float32))))
+        if flush:
+            results.extend(self.app.flush())
+        return results
 
 
 class SequenceRecorder:

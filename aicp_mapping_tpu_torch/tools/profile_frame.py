@@ -1,7 +1,8 @@
 """Profile the App's frame at the bench operating point on one NVIDIA GPU,
-without and with failure prediction.
+without and with failure prediction, or the streaming front-end.
 
     python3 -m aicp_mapping_tpu_torch.tools.profile_frame [--frames 8]
+    python3 -m aicp_mapping_tpu_torch.tools.profile_frame --pipelined
 
 The cell is `chip_smoke.py`'s bench slice: 60,000-point scans of the bench
 sequence (`profile_localize.SCAN_ARGS`), 65,536 raw / 16,384 voxels /
@@ -21,6 +22,17 @@ warm-up frames, then
    ms and launches per frame by launch grid (K1's coarse and fine ICP
    launches apart). The busy share is that device time over the mean wall
    time of step 1.
+
+`--pipelined` profiles the stream cell instead (`profile_localize.
+stream_config`, bench.py's own operating point): the 40 frames of the
+bench sequence through `SequenceRunner(pipelined=True).run_clouds(...,
+batch_h2d=16)` as `bench.py:bench_app` drives them — a warm-up pass, then
+3 timed passes over frames 2-39 on the same App (scans/s, their median),
+the port's kernel launches per frame, and one more pass under
+`torch.profiler`: device time per frame, the busy share (that device time
+over the timed passes' median wall time per frame; the profiler slows the
+pass it records), kernel launches and host reads (device-to-host copies)
+per frame.
 
 Prints one JSON object per row and writes them to `--out`. Exits non-zero
 without a result when CUDA is unavailable.
@@ -146,12 +158,90 @@ def profile_row(torch, items, frames: int, risk: bool) -> dict:
         port_kernels_per_frame=_port_kernels(events, frames))
 
 
+STREAM_FRAMES = 40      # bench.py --frames
+STREAM_PASSES = 3       # bench.py's trials
+
+
+def profile_stream(torch, items) -> dict:
+    """The streaming front-end at bench.py's operating point: scans/s of
+    the timed passes over frames 2-39, launches, device time and host reads
+    per frame."""
+    from .. import _kernels
+    from ..ops import segmentation
+    from ..pipeline.app import App
+    from ..pipeline.sequence import SequenceRunner
+    from .profile_localize import stream_config
+
+    cfg = stream_config()
+    batch = cfg.pipeline_depth // 2
+    app = App(cfg, device="cuda")
+    try:
+        runner = SequenceRunner(app, pipelined=True)
+        runner.run_clouds(items[:2])
+        runner.run_clouds(items[2:], batch_h2d=batch)
+        n = len(items) - 2
+        _kernels.reset_launch_counts()
+        segmentation.reset_propagation_rounds()
+        rates, walls = [], []
+        for _ in range(STREAM_PASSES):
+            t0 = time.perf_counter()
+            runner.run_clouds(items[2:], batch_h2d=batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            rates.append(n / walls[-1])
+        launches = _kernels.launch_counts()
+        rounds = segmentation.propagation_rounds()
+
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            runner.run_clouds(items[2:], batch_h2d=batch)
+            torch.cuda.synchronize()
+            profiled_s = time.perf_counter() - t0
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "trace.json")
+            prof.export_chrome_trace(path)
+            events = _device_events(path)
+    finally:
+        app.close()
+    if not events:
+        raise RuntimeError("the profiler recorded no device events")
+    by_name = collections.defaultdict(float)
+    for _, name, us, _ in events:
+        by_name[name] += us
+    device_ms = sum(by_name.values()) / 1e3 / n
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return dict(
+        cell="stream", pipeline_depth=cfg.pipeline_depth, batch_h2d=batch,
+        frames_per_pass=n, passes=STREAM_PASSES, scans_per_s=rates,
+        scans_per_s_median=float(np.median(rates)),
+        port_kernel_launches_per_frame={
+            k: v / (STREAM_PASSES * n) for k, v in launches.items() if v},
+        propagation_rounds_per_frame=rounds["rounds"] / (STREAM_PASSES * n),
+        accepted_last_pass=sum(1 for r in app.frames[-n:] if r.accepted),
+        profiled_pass_s=profiled_s, device_ms_per_frame=device_ms,
+        busy_share=device_ms * float(np.median(rates)) / 1e3,
+        kernel_launches_per_frame=sum(
+            1 for cat, _, _, _ in events if cat == "kernel") / n,
+        host_reads_per_frame=sum(
+            1 for cat, name, _, _ in events
+            if cat == "gpu_memcpy" and "DtoH" in name) / n,
+        top_device_ms_per_frame={name[:80]: us / 1e3 / n
+                                 for name, us in top},
+        port_kernels_per_frame=_port_kernels(events, n))
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=8)
-    ap.add_argument("--out", default="chiprun_out/profile_frame.json")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="profile the streaming front-end (the stream cell)")
+    ap.add_argument("--out", default=None,
+                    help="default chiprun_out/profile_frame.json, "
+                         "or profile_stream.json with --pipelined")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: torch.cuda.is_available() is False",
@@ -166,16 +256,22 @@ def main(argv=None) -> int:
 
     torch.zeros(1, device="cuda")
     _kernels.library()
-    items, _ = synthetic_sequence(n_frames=1 + WARMUP + 3 * args.frames,
-                                  **SCAN_ARGS)
     rows = []
-    for risk in (False, True):
-        row = dict(device=gpu, **profile_row(torch, items, args.frames,
-                                             risk))
-        print(json.dumps(row), flush=True)
-        rows.append(row)
-    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-    with open(args.out, "w") as f:
+    if args.pipelined:
+        items, _ = synthetic_sequence(n_frames=STREAM_FRAMES, **SCAN_ARGS)
+        rows.append(dict(device=gpu, **profile_stream(torch, items)))
+        print(json.dumps(rows[-1]), flush=True)
+    else:
+        items, _ = synthetic_sequence(n_frames=1 + WARMUP + 3 * args.frames,
+                                      **SCAN_ARGS)
+        for risk in (False, True):
+            rows.append(dict(device=gpu, **profile_row(
+                torch, items, args.frames, risk)))
+            print(json.dumps(rows[-1]), flush=True)
+    out = args.out or ("chiprun_out/profile_stream.json" if args.pipelined
+                       else "chiprun_out/profile_frame.json")
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(rows, f, indent=1)
     return 0
 

@@ -58,6 +58,19 @@ def bench_config():
     return cfg
 
 
+def stream_config():
+    """bench.py's streaming operating point (bench.py:260-281) as the JAX
+    App runs it there: the bench capacities and coarse-to-fine ICP,
+    `pipeline_depth` 32, the host voxel grid at 0.08 m with the int16
+    upload, and async finalize."""
+    cfg = bench_config()
+    cfg.pipeline_depth = 32
+    cfg.quantized_upload = True
+    cfg.wire_voxel = 0.08
+    cfg.async_finalize = True
+    return cfg
+
+
 def map_scene(n_frames: int = 4):
     """The prior map, and `n_frames` scans of the bench sequence with their
     odometry and ground-truth poses."""

@@ -37,7 +37,17 @@ launch counts set to 0 just before it and read just after:
   K1, keyframe normals by K3, PGO, plane BA), each back-end stage timed
   and counted, against the accuracy regression's assertions (its two
   back-end margins at seeds 3 and 7, printed at seed 0), with the whole
-  back-end replayed by a CPU mapper from the card's seed-0 keyframes.
+  back-end replayed by a CPU mapper from the card's seed-0 keyframes;
+- the streaming front-end (`run_stream`) at bench.py's own operating point
+  (depth 32, the host voxel grid at 0.08 m with the int16 upload, async
+  finalize): bench.py's 40 frames through
+  `SequenceRunner(pipelined=True).run_clouds(..., batch_h2d=16)`, a
+  warm-up pass and 3 timed passes on one App (scans/s), the uploads of the
+  preparation thread against synchronous uploads bit for bit, the frames
+  against the same pipeline finalizing inline and against a synchronous
+  App (ms/frame) up to the first rejection, 6 wire frames against the CPU
+  App with the dequantized clouds equal on both devices, and a
+  `StreamingDriver` drive.
 
 Phase 3 also holds K1 and K5 (both modes) to their twins on a scene of
 exact ties across the slices their split scans cut the window into, and
@@ -120,6 +130,7 @@ OPS_PER_NEIGHBOUR = 10
 BIG = 3.4e38
 NN_API_CELL = 4.0     # m, the ICP's Morton cell (ICPConfig.nn_cell_size)
 NN_API_BAND = 16      # of 64 blocks: the auto band of 8,192 x 65,536
+STREAM_FRAMES = 40    # bench.py --frames
 
 
 def log(*args):
@@ -830,44 +841,55 @@ def risk_stage_agrees(torch, cfg, call, what: str) -> None:
     assert bool(out.risk_ok) == bool(ok), (what, got, want)
 
 
-def run_bench_slice(torch, risk: bool = False) -> float:
+def run_bench_slice(torch, risk: bool = False, wire: bool = False) -> float:
     """Phase 4: the frame path at the benchmark's operating point on the
     card, each frame checked against the CPU App started from the card
     App's state; with `risk`, failure prediction on (the shipped
     classifier) and the card's risk stage also checked against the CPU's
-    on the same inputs. Returns the steady ms/frame."""
+    on the same inputs; with `wire`, the stream cell's wire format (host
+    voxel grid, int16 upload, async finalize), each frame's cloud uploaded
+    to both devices and dequantized there to the same bits. Returns the
+    steady ms/frame."""
     from aicp_mapping_tpu_torch import AlignedCloud, App, Cloud, _kernels
     from aicp_mapping_tpu_torch.convert import (app_state_from_numpy,
                                                 app_state_to_numpy)
     from aicp_mapping_tpu_torch.ops import segmentation
-    from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
+    from aicp_mapping_tpu_torch.pipeline.sequence import (synthetic_sequence,
+                                                          wire_cloud)
 
-    cfg = cells().bench_config()
+    cfg = cells().stream_config() if wire else cells().bench_config()
     if risk:
         cfg.failure_prediction_mode = True
         cfg.classifier_path = CLASSIFIER
-    name = "bench slice with failure prediction" if risk else "bench slice"
-    items, _ = synthetic_sequence(n_frames=6, n_points=60000, step=1.2,
-                                  seed=0, world_size=60.0,
-                                  sensor_range=40.0, noise=0.02)
+    name = ("bench slice with failure prediction" if risk else
+            "bench slice on the wire" if wire else "bench slice")
+    items, _ = synthetic_sequence(n_frames=6, **cells().SCAN_ARGS)
     gpu, cpu = App(cfg, device="cuda"), App(cfg, device="cpu")
     calls = record_steps(gpu)
     gpu_ms, cpu_s = [], []
     for i, (utime, pts, pose) in enumerate(items):
         if i > 0:
             app_state_from_numpy(cpu, **app_state_to_numpy(gpu))
-        cloud = Cloud.from_numpy(pts, capacity=cfg.raw_capacity)
+        if wire:
+            cloud_g = wire_cloud(cfg, pts, device="cuda")
+            cloud_c = wire_cloud(cfg, pts, device="cpu")
+            assert cloud_g.pre_voxelized and cloud_c.pre_voxelized
+            assert torch.equal(cloud_g.points.cpu(), cloud_c.points), i
+            assert torch.equal(cloud_g.mask.cpu(), cloud_c.mask), i
+        else:
+            cloud_g = cloud_c = Cloud.from_numpy(pts,
+                                                 capacity=cfg.raw_capacity)
         before = sum(_kernels.launch_counts().values())
         segmentation.reset_propagation_rounds()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        rg = gpu.process_cloud(AlignedCloud.create(utime, cloud, pose))
+        rg = gpu.process_cloud(AlignedCloud.create(utime, cloud_g, pose))
         torch.cuda.synchronize()
         gpu_ms.append((time.perf_counter() - t0) * 1e3)
         launches = sum(_kernels.launch_counts().values()) - before
         rounds = segmentation.propagation_rounds()["rounds"]
         t0 = time.perf_counter()
-        rc = cpu.process_cloud(AlignedCloud.create(utime, cloud, pose))
+        rc = cpu.process_cloud(AlignedCloud.create(utime, cloud_c, pose))
         cpu_s.append(time.perf_counter() - t0)
         log(f"{name} frame {i}: card {gpu_ms[-1]:.1f} ms, overlap "
             f"{rg.octree_overlap:.3f} (cpu {rc.octree_overlap:.3f}), fov "
@@ -897,6 +919,8 @@ def run_bench_slice(torch, risk: bool = False) -> float:
         if risk and i > 0:
             risk_stage_agrees(torch, cfg, calls[-1], f"{name} frame {i}")
             assert 0.0 <= rg.risk <= 1.0 and rounds > 0, rg
+    gpu.close()
+    cpu.close()
     if risk:
         assert any(r.registered for r in gpu.frames[1:]), gpu.frames
     else:
@@ -907,6 +931,192 @@ def run_bench_slice(torch, risk: bool = False) -> float:
         f"warm-up frame; min {min(steady):.2f}, max {max(steady):.2f}); "
         f"CPU App {np.mean(cpu_s[2:]):.2f} s/frame")
     return float(np.mean(steady))
+
+
+def worst(got, want) -> dict:
+    """The largest differences between two runs' frames."""
+    def most(f):
+        return max((f(g, w) for g, w in zip(got, want)), default=0.0)
+
+    return dict(
+        correction_t=most(lambda g, w: float(np.abs(
+            g.correction[:3, 3] - w.correction[:3, 3]).max())),
+        corrected_t=most(lambda g, w: float(np.abs(
+            g.corrected_pose[:3, 3] - w.corrected_pose[:3, 3]).max())),
+        octree_overlap=most(lambda g, w: abs(g.octree_overlap
+                                             - w.octree_overlap)),
+        filtered_size=most(lambda g, w: abs(g.filtered_size
+                                            - w.filtered_size)))
+
+
+def run_stream(torch) -> dict:
+    """The "stream" phase: the streaming front-end at bench.py's own
+    operating point (`cells().stream_config()`: depth 32, the host voxel
+    grid at 0.08 m with the int16 upload, async finalize) on bench.py's
+    40-frame sequence, driven as `bench.py:bench_app` drives the JAX App:
+    `SequenceRunner(pipelined=True).run_clouds` over frames 0-1, then 2-39
+    in upload batches of 16 (the warm-up pass), then 3 timed passes over
+    frames 2-39 on the same App. The clouds the App received from the
+    preparation thread (one pinned, non-blocking copy per batch) must be
+    the bits of a synchronous upload. The warm-up pass's 40 frames must
+    agree (gates and reference ids equal, the rest within the golden
+    tolerances) with the same pipeline finalizing on its dispatch thread,
+    and with a synchronous App of the same wire config up to the first
+    rejected frame; then the bench slice's card-vs-CPU check on 6 wire
+    frames (`run_bench_slice(wire=True)`), and a `StreamingDriver` drive on
+    the card. Returns the numbers it prints."""
+    from aicp_mapping_tpu_torch import AlignedCloud, App, _kernels
+    from aicp_mapping_tpu_torch.native import voxel_downsample_q16
+    from aicp_mapping_tpu_torch.pipeline.sequence import (SequenceRunner,
+                                                          synthetic_sequence,
+                                                          wire_cloud)
+
+    cfg = cells().stream_config()
+    batch = cfg.pipeline_depth // 2
+    items, gts = synthetic_sequence(n_frames=STREAM_FRAMES,
+                                    **cells().SCAN_ARGS)
+    smi = gpu_line()
+    t0 = time.perf_counter()
+    for _, pts, _ in items:
+        voxel_downsample_q16(pts, cfg.wire_voxel, cfg.downsample_capacity)
+    prep_ms = (time.perf_counter() - t0) * 1e3 / len(items)
+
+    app = App(cfg, device="cuda")
+    received, submit = [], app.submit_cloud
+
+    def recording(cloud):
+        received.append(cloud.cloud)
+        return submit(cloud)
+
+    app.submit_cloud = recording
+    runner = SequenceRunner(app, pipelined=True)
+    n = len(items) - 2
+    try:
+        piped = runner.run_clouds(items[:2])
+        piped += runner.run_clouds(items[2:], batch_h2d=batch)
+        app.submit_cloud = submit
+        before = _kernels.launch_counts()
+        rates = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runner.run_clouds(items[2:], batch_h2d=batch)
+            torch.cuda.synchronize()
+            rates.append(n / (time.perf_counter() - t0))
+        launches = {k: (v - before[k]) / (3 * n)
+                    for k, v in _kernels.launch_counts().items()}
+    finally:
+        app.close()
+    assert [r.utime for r in piped] == [it[0] for it in items], piped
+    for (utime, pts, _), got in zip(items, received):
+        want = wire_cloud(cfg, pts, device="cuda")
+        assert got.pre_voxelized and torch.equal(got.mask, want.mask), utime
+        assert torch.equal(got.points, want.points), utime
+
+    # the same pipeline with finalize on the dispatch thread: the same
+    # frames (which frame's finalize lands before which dispatch decides
+    # nothing here, as every window of 16 frames adopts a new reference)
+    inline = App(dataclasses.replace(cfg, async_finalize=False),
+                 device="cuda")
+    runner = SequenceRunner(inline, pipelined=True)
+    inline_res = runner.run_clouds(items[:2])
+    inline_res += runner.run_clouds(items[2:], batch_h2d=batch)
+    for i, (p, r) in enumerate(zip(piped, inline_res)):
+        assert (p.accepted, p.registered, p.reference_id) == \
+            (r.accepted, r.registered, r.reference_id), (i, p, r)
+        frame_lines_agree(p, as_line(r), f"stream frame {i}, inline")
+    log(f"stream: async vs inline finalize at depth {cfg.pipeline_depth}, "
+        f"largest differences over {len(items)} frames: "
+        f"{json.dumps(worst(piped, inline_res))}")
+
+    # the synchronous App: the same frames up to the first rejection; after
+    # it the pipeline registers against its speculative references (the
+    # JAX package's pipelined semantics) and the two runs part
+    sync = App(dataclasses.replace(cfg, async_finalize=False), device="cuda")
+    sync_res, sync_ms = [], []
+    for utime, pts, pose in items:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sync_res.append(sync.process_cloud(AlignedCloud.create(
+            utime, wire_cloud(cfg, pts, device="cuda"), pose)))
+        torch.cuda.synchronize()
+        sync_ms.append((time.perf_counter() - t0) * 1e3)
+    first_reject = next((i for i, r in enumerate(sync_res)
+                         if not r.accepted), len(items) - 1)
+    for i, (p, r) in enumerate(zip(piped[:first_reject + 1], sync_res)):
+        assert (p.accepted, p.registered, p.reference_id) == \
+            (r.accepted, r.registered, r.reference_id), (i, p, r)
+        frame_lines_agree(p, as_line(r), f"stream frame {i}, synchronous")
+    assert sum(r.registered for r in piped) >= len(items) // 2, piped
+    log(f"stream: pipelined vs synchronous App on the card agree on frames "
+        f"0-{first_reject} (the synchronous App's first rejection is frame "
+        f"{first_reject}, if any); largest differences "
+        f"there {json.dumps(worst(piped[:first_reject + 1], sync_res))}, "
+        f"over all {len(items)} frames "
+        f"{json.dumps(worst(piped, sync_res))}; pipelined accepted "
+        f"{sum(r.accepted for r in piped)}, registered "
+        f"{sum(r.registered for r in piped)}; synchronous accepted "
+        f"{sum(r.accepted for r in sync_res)}, registered "
+        f"{sum(r.registered for r in sync_res)}")
+
+    wire_ms = run_bench_slice(torch, wire=True)
+    driven = drive_stream(torch, cfg, items, gts)
+    out = dict(scans_per_s=float(np.median(rates)), passes=rates,
+               sync_ms=float(np.mean(sync_ms[2:])), prep_ms=prep_ms,
+               wire_slice_ms=wire_ms, driver_frames=driven,
+               launches_per_frame={k: v for k, v in launches.items() if v})
+    log(f"stream cell on the card ({smi}): pipelined "
+        f"{out['scans_per_s']:.2f} scans/s (median of 3 passes over "
+        f"{n} frames: {', '.join(f'{r:.2f}' for r in rates)}); synchronous "
+        f"{out['sync_ms']:.2f} ms/frame (frames 2-{len(items) - 1}, upload "
+        f"included); wire preparation {prep_ms:.2f} ms per cloud on the "
+        f"host; port kernel launches per frame "
+        f"{json.dumps(out['launches_per_frame'])}")
+    return out
+
+
+def drive_stream(torch, cfg, items, gts) -> int:
+    """A `StreamingDriver` on the card over the stream cell's App (its
+    worker pipelined, `debug_dir` set, so the finalizer thread also reads
+    clouds back for the dumps): the first 8 frames as sensor-frame scans,
+    one scan a cloud; the corrected pose tracks the ground truth."""
+    import tempfile
+
+    from aicp_mapping_tpu_torch import App
+    from aicp_mapping_tpu_torch.pipeline.stream import StreamingDriver
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        app = App(dataclasses.replace(cfg, debug_dir=d), device="cuda")
+        results, poses = [], []
+        drv = StreamingDriver(app, batch_size=1, max_range=100.0,
+                              motion_gate_translation=0.5, pipelined=True,
+                              pose_callback=lambda t, T: poses.append(T),
+                              result_callback=results.append)
+        drv.run()
+        try:
+            for utime, pts, odom in items[:8]:
+                drv.on_pose(utime, odom)
+                drv.on_scan(utime, cells().sensor_frame(pts, odom))
+                drv.flush()
+        finally:
+            drv.stop()
+            app.close()
+        dumps = sorted(os.listdir(d))
+    err = float(np.linalg.norm(app.correct_pose(items[7][2])[:3, 3]
+                               - gts[7][:3, 3]))
+    log(f"stream: StreamingDriver on the card, {len(results)} clouds "
+        f"registered of 8 scans ({drv.n_dropped} dropped), {len(poses)} "
+        f"poses published, final position error {err:.3f} m; debug dumps "
+        f"{dumps}")
+    assert drv.n_processed == len(results) >= 3, results
+    assert all(np.isfinite(r.corrected_pose).all() for r in results)
+    assert len(poses) == 8 and err < 0.5, err
+    # one prefiltered dump per frame after the bootstrap, one aligned per
+    # registered frame kept
+    aligned = sum(r.accepted and r.registered for r in results)
+    assert len(dumps) == (len(results) - 1) + aligned, dumps
+    return len(results)
 
 
 def run_golden(torch) -> None:
@@ -1478,8 +1688,8 @@ def main() -> int:
     check_nn_api_kernels(torch, results, nn)
     check_tie_scenes(torch)
 
-    # 4-12. the main paths, each with its own launch counts
-    bench_ms = {}
+    # 4-13. the main paths, each with its own launch counts
+    bench_ms, stream = {}, {}
     paths = [
         drive("frame", lambda: bench_ms.update(
             off=run_bench_slice(torch)), ("nn_payload", "banded_moments")),
@@ -1502,12 +1712,20 @@ def main() -> int:
               ("nn_payload", "banded_nn_payload_stream", "banded_nn_argmin")),
         drive("slam", lambda: run_slam(torch),
               ("nn_payload", "radius_moments")),
+        drive("stream", lambda: stream.update(run_stream(torch)),
+              ("nn_payload", "banded_moments")),
     ]
     log(f"bench operating point on the card: {bench_ms['off']:.2f} ms/frame"
         f" without failure prediction, {bench_ms['on']:.2f} with it")
+    log(f"stream cell on the card ({gpu_line()}): "
+        f"{stream['scans_per_s']:.2f} scans/s pipelined, "
+        f"{stream['sync_ms']:.2f} ms/frame synchronous, "
+        f"{stream['prep_ms']:.2f} ms wire preparation per cloud, "
+        f"{sum(stream['launches_per_frame'].values()):.1f} port kernel "
+        "launches per frame")
     counts = {k: sum(c[k] for c in paths) for k in KERNELS}
 
-    # 13. the main paths went through every kernel
+    # 14. the main paths went through every kernel
     log(f"launches on all paths: {counts}")
     assert all(counts[k] > 0 for k in KERNELS), counts
 

@@ -410,11 +410,34 @@ def test_kernels_never_fall_back(monkeypatch, tmp_path):
             App(PipelineConfig(), device="cuda")
 
 
-def test_app_rejects_unported_modes():
-    for kw in (dict(async_finalize=True), dict(wire_voxel=0.08),
-               dict(quantized_upload=True), dict(debug_dir="dumps")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            App(PipelineConfig(**kw), device="cpu")
+def test_app_rejects_unported_modes(sequence, tmp_path):
+    """The visualizer is the one App option still unported: it raises. The
+    modes that raised before the streaming slice (async finalize, the wire
+    formats, `debug_dir`) build and run frame by frame like JAX's App: the
+    golden scenario's first four frames pipelined at depth 2, uploaded in
+    batches of 2, with the same debug dump file names."""
+    with pytest.raises(NotImplementedError, match="Q1 #14"):
+        App(PipelineConfig(), device="cpu", visualizer=object())
+    from aicp_mapping_tpu.pipeline import SequenceRunner as JRunner
+    from aicp_mapping_tpu_torch.pipeline import SequenceRunner
+
+    kw = dict(async_finalize=True, quantized_upload=True, wire_voxel=0.08,
+              pipeline_depth=2)
+    japp = JaxApp(_golden_cfg(jconfig.PipelineConfig, **kw,
+                              debug_dir=str(tmp_path / "jax")))
+    want = JRunner(japp, pipelined=True).run_clouds(sequence[:4],
+                                                    batch_h2d=2)
+    japp.close()
+    app = App(_golden_cfg(PipelineConfig, **kw,
+                          debug_dir=str(tmp_path / "port")), device="cpu")
+    got = SequenceRunner(app, pipelined=True).run_clouds(sequence[:4],
+                                                         batch_h2d=2)
+    app.close()
+    _compare(_result_lines(got), _result_lines(want), "streaming modes")
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert sorted(os.listdir(tmp_path / "port")) == names
+    assert "cloud_0001_prefiltered.pcd" in names
+    assert "cloud_0003_aligned.pcd" in names
 
 
 def test_app_loads_the_classifier_of_the_config():

@@ -1,0 +1,104 @@
+"""The port's recorded-sequence commands against the JAX package's CLI on
+the CPU: `replay`, `accumulate` (the same PCD bytes) and `localize` on one
+device, over a sequence recorded by `SequenceRecorder`."""
+import json
+
+import numpy as np
+import pytest
+import torch
+
+from aicp_mapping_tpu import cli as jcli
+from aicp_mapping_tpu.io import poses as jposes
+from aicp_mapping_tpu.pipeline import SequenceRecorder
+from aicp_mapping_tpu.pipeline import synthetic_sequence as jax_sequence
+from aicp_mapping_tpu_torch import cli
+from aicp_mapping_tpu_torch.io.pcd import write_pcd
+from test_golden import TOLERANCES
+
+torch.set_num_threads(1)
+
+# tests/test_golden.py's capacities, in the reference's YAML schema
+CONFIG = """AICP:
+  Pipeline:
+    rawCapacity: 8192
+    downsampleCapacity: 4096
+    filteredCapacity: 2048
+    minClusterSize: 20
+"""
+
+
+@pytest.fixture(scope="module")
+def recorded(tmp_path_factory):
+    """Four frames of the golden sequence recorded, a prior map of their
+    points and the small config."""
+    root = tmp_path_factory.mktemp("recorded")
+    items, _ = jax_sequence(n_frames=4, n_points=5000, seed=11)
+    rec = SequenceRecorder(str(root / "seq"))
+    for utime, pts, pose in items:
+        rec.record(utime, pts, pose)
+    write_pcd(str(root / "map.pcd"),
+              np.concatenate([p for _, p, _ in items]))
+    (root / "aicp.yaml").write_text(CONFIG)
+    return root
+
+
+def _run(main, argv, capsys):
+    assert main(argv) == 0
+    return json.loads(capsys.readouterr().out)
+
+
+def _poses_agree(a, b):
+    pa, pb = jposes.read_kitti_poses(a), jposes.read_kitti_poses(b)
+    assert len(pa) == len(pb)
+    np.testing.assert_allclose(np.asarray(pa)[:, :3, 3],
+                               np.asarray(pb)[:, :3, 3],
+                               atol=TOLERANCES["corrected_t"])
+
+
+def test_replay_matches_jax(recorded, capsys, tmp_path):
+    argv = ["replay", str(recorded / "seq"), "--config",
+            str(recorded / "aicp.yaml")]
+    want = _run(jcli.main, argv + ["--output-poses",
+                                   str(tmp_path / "want.txt")], capsys)
+    got = _run(cli.main, argv + ["--device", "cpu", "--output-poses",
+                                 str(tmp_path / "got.txt")], capsys)
+    assert got == want and got["frames"] == 4
+    _poses_agree(tmp_path / "got.txt", tmp_path / "want.txt")
+    with pytest.raises(NotImplementedError, match="Q1 #14"):
+        cli.main(argv + ["--device", "cpu", "--live-viz", "0"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+
+
+@pytest.mark.parametrize("extra", [[], ["--voxel", "0.1"],
+                                   ["--max-scans", "3", "--capacity", "9000",
+                                    "--max-range", "12"]])
+def test_accumulate_matches_jax(recorded, capsys, tmp_path, extra):
+    """The same odom-frame cloud, written as the same PCD bytes."""
+    argv = ["accumulate", str(recorded / "seq"), *extra, "-o"]
+    want = _run(jcli.main, argv + [str(tmp_path / "want.pcd")], capsys)
+    got = _run(cli.main, argv + [str(tmp_path / "got.pcd")], capsys)
+    assert (got["scans"], got["points"]) == (want["scans"], want["points"])
+    assert (tmp_path / "got.pcd").read_bytes() == \
+        (tmp_path / "want.pcd").read_bytes()
+
+
+def test_localize_matches_jax(recorded, capsys, tmp_path):
+    """`localize --mesh-devices 1` against JAX's on a one-device mesh: the
+    same frames and map, poses within the golden tolerance; a sharded map
+    raises."""
+    argv = ["localize", str(recorded / "seq"), "--map",
+            str(recorded / "map.pcd")]
+    want = _run(jcli.main, argv + ["--output-poses",
+                                   str(tmp_path / "want.txt")], capsys)
+    got = _run(cli.main, argv + ["--device", "cpu", "--mesh-devices", "1",
+                                 "--output-poses", str(tmp_path / "got.txt")],
+               capsys)
+    for key in ("frames", "map_points", "mesh_devices"):
+        assert got[key] == want[key], key
+    np.testing.assert_allclose(got["final_pose_t"], want["final_pose_t"],
+                               atol=TOLERANCES["corrected_t"])
+    _poses_agree(tmp_path / "got.txt", tmp_path / "want.txt")
+    with pytest.raises(NotImplementedError, match="Q1 #13"):
+        cli.main(argv + ["--device", "cpu", "--mesh-devices", "2"])

@@ -225,8 +225,19 @@ def test_whole_slice_matches_jax(jax_snapshot):
     app = App(port_config(), device="cpu")
     results = SequenceRunner(app).run_clouds(items)
     check_slice(app, results, japp, jresults)
-    with pytest.raises(NotImplementedError, match="Q1 #8"):
-        SequenceRunner(app, pipelined=True)
+    # the pipelined front-end (depth 4, async finalize) on the loop's
+    # first frames: JAX's pipelined results equal its synchronous ones on
+    # this nominal loop (tests/test_pipeline.py), and so do the port's
+    cfg = dataclasses.replace(port_config(), pipeline_depth=4,
+                              async_finalize=True)
+    piped = App(cfg, device="cpu")
+    pres = SequenceRunner(piped, pipelined=True).run_clouds(items[:5])
+    piped.close()
+    for a, b in zip(results[:5], pres):
+        assert (a.accepted, a.registered, a.reference_id) == \
+            (b.accepted, b.registered, b.reference_id)
+        np.testing.assert_allclose(a.corrected_pose, b.corrected_pose,
+                                   atol=1e-6, rtol=0)
 
 
 def test_recorded_sequence_replays_from_disk(tmp_path):
