@@ -15,20 +15,24 @@ slam       end-to-end SLAM over a recorded sequence directory or a
            synthetic loop: AICP front-end (`--pipelined`: through the
            submission pipeline) -> overlap-ranked, ICP-verified loop
            closures -> pose-graph optimization -> optional plane BA;
-           prints the JAX package's `slam` summary as JSON. The
-           mesh-sharded back-end (`--mesh-devices` > 1) is ROADMAP Q1 #13
-           and raises.
+           prints the JAX package's `slam` summary as JSON. With
+           `--mesh-devices N` > 1 the PGO is edge-sharded and the plane BA
+           observation-sharded over N ranks.
 replay     replay a recorded sequence directory through the App; prints
            frame counts, writes the trajectory (`--live-viz`, the JAX
            package's live viewer, is ROADMAP Q1 #14 and raises).
 accumulate concatenate a recorded sequence's scans into one odom-frame
            cloud (range crop, optional voxel grid) and write it as PCD.
-localize   localize a recorded sequence against a prior map on one device
-           (`--mesh-devices` > 1 is ROADMAP Q1 #13 and raises).
+localize   localize a recorded sequence against a prior map, split into
+           one Morton block per rank with `--mesh-devices N`.
 
 The commands that run the App run on the card unless `--device cpu` is
-given. The JAX package's other subcommands are not ported yet (ROADMAP
-Q1 #14).
+given. `--mesh-devices N` > 1 starts N ranks (processes) itself — rank r
+on card r % cards, NCCL when each rank has a card of its own, else gloo —
+or, under `torchrun` with N processes, joins that group; rank 0 runs the
+command, writes its outputs and prints the summary, which carries
+`mesh_devices` and the backend. The JAX package's other subcommands are
+not ported yet (ROADMAP Q1 #14).
 """
 from __future__ import annotations
 
@@ -135,6 +139,41 @@ def _cmd_register(args) -> int:
 
 
 def _cmd_slam(args) -> int:
+    if args.mesh_devices > 1:
+        return _on_ranks(_slam_rank, args)
+    print(json.dumps(_slam(args), indent=2))
+    return 0
+
+
+def _slam_rank(args):
+    """One rank of `slam --mesh-devices N`: rank 0 runs the command over a
+    1-D "graph" mesh, the others serve its back-end solves."""
+    from .parallel.mesh import make_mesh
+    from .pipeline.mapper import serve_backend
+
+    mesh = make_mesh(args.mesh_devices, axis="graph", device=args.device)
+    if mesh.rank != 0:
+        serve_backend(mesh, "graph")
+        return None
+    summary = _slam(args, mesh)
+    mesh.stop_serving()
+    return dict(summary, mesh_devices=args.mesh_devices,
+                backend=mesh.backend)
+
+
+def _on_ranks(fn, args) -> int:
+    """Run `fn(args)` on `--mesh-devices` ranks (stopped after
+    `mesh.DEFAULT_TIMEOUT_S`); print rank 0's summary."""
+    from .parallel.mesh import launch
+
+    summary = launch(fn, args.mesh_devices, args,
+                     device=args.device)[0].value
+    if summary is not None:
+        print(json.dumps(summary, indent=2))
+    return 0
+
+
+def _slam(args, mesh=None) -> dict:
     from .eval.kitti import ate_rmse
     from .io.pcd import write_pcd
     from .io.poses import write_kitti_poses
@@ -143,10 +182,6 @@ def _cmd_slam(args) -> int:
     from .pipeline.mapper import PoseGraphMapper
     from .pipeline.sequence import SequenceRunner, synthetic_sequence
 
-    if args.mesh_devices > 1:
-        raise NotImplementedError(
-            "slam --mesh-devices > 1: the edge-sharded PGO over a device mesh "
-            "is ROADMAP Q1 #13")
     if args.config:
         cfg = load_yaml_config(args.config)
     elif args.directory:
@@ -158,7 +193,7 @@ def _cmd_slam(args) -> int:
             downsample_capacity=4096, filtered_capacity=2048,
             map_capacity=16384, min_cluster_size=30,
             reference_update_frequency=2)
-    app = App(cfg, device=args.device)
+    app = App(cfg, device=args.device if mesh is None else mesh.device)
     runner = SequenceRunner(app, pipelined=args.pipelined)
     gt = None
     if args.directory:
@@ -170,7 +205,7 @@ def _cmd_slam(args) -> int:
         results = runner.run_clouds(items)
 
     mapper = PoseGraphMapper(
-        app, min_loop_overlap=args.min_loop_overlap,
+        app, mesh=mesh, min_loop_overlap=args.min_loop_overlap,
         min_keyframe_gap=args.min_keyframe_gap,
         max_loop_distance=args.max_loop_distance)
     kfs_pre = mapper.keyframes()
@@ -193,13 +228,12 @@ def _cmd_slam(args) -> int:
         summary["ate_pre_m"] = round(ate_rmse(gt_k, pre_poses), 4)
         summary["ate_post_m"] = round(
             ate_rmse(gt_k, np.stack([k.pose for k in kfs])), 4)
-    print(json.dumps(summary, indent=2))
     if args.output_map:
         write_pcd(args.output_map, app.aligned_map_np)
     if args.output_poses and kfs:
         write_kitti_poses(args.output_poses,
                           np.stack([k.pose for k in kfs]))
-    return 0
+    return summary
 
 
 def _cmd_replay(args) -> int:
@@ -259,18 +293,34 @@ def _cmd_accumulate(args) -> int:
 
 
 def _cmd_localize(args) -> int:
+    if args.mesh_devices > 1:
+        return _on_ranks(_localize_rank, args)
+    print(json.dumps(_localize(args)))
+    return 0
+
+
+def _localize_rank(args):
+    """One rank of `localize --mesh-devices N`: every rank holds one block
+    of the map; rank 0 localizes, the others serve its crops."""
+    from .parallel.mesh import make_mesh
+
+    mesh = make_mesh(args.mesh_devices, axis="points", device=args.device)
+    summary = _localize(args, mesh)
+    return None if summary is None else dict(summary, backend=mesh.backend)
+
+
+def _localize(args, mesh=None):
     from .io.pcd import read_cloud
     from .io.poses import read_pose_csv, write_kitti_poses
     from .parallel import ShardedMapLocalizer
 
-    if args.mesh_devices > 1:
-        raise NotImplementedError(
-            "localize --mesh-devices > 1: the map sharded over a device "
-            "mesh is ROADMAP Q1 #13")
     map_pts, _ = read_cloud(args.map)
     loc = ShardedMapLocalizer(map_pts, trim_ratio=args.trim_ratio,
                               max_correction_magnitude=args.max_correction,
-                              device=args.device)
+                              device=args.device, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        loc.serve()
+        return None
     poses = read_pose_csv(os.path.join(args.directory,
                                        "aicp_input_poses.csv"))
     out = []
@@ -282,16 +332,16 @@ def _cmd_localize(args) -> int:
         pose = np.asarray(p.pose, np.float64)
         local = (pts - pose[:3, 3]) @ pose[:3, :3]
         out.append(loc.localize(local.astype(np.float32), p.pose))
+    loc.stop_serving()
     if args.output_poses:
         write_kitti_poses(args.output_poses, np.stack(out))
-    print(json.dumps({
+    return {
         "frames": len(out),
         "map_points": int(len(map_pts)),
         "mesh_devices": args.mesh_devices,
         "final_pose_t": [round(float(v), 4) for v in out[-1][:3, 3]],
         "output": args.output_poses or "",
-    }))
-    return 0
+    }
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -327,7 +377,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="drive the front-end through the submission "
                          "pipeline")
     sl.add_argument("--mesh-devices", type=int, default=1,
-                    help=">1: edge-sharded PGO (not ported: raises)")
+                    help=">1: edge-shard the PGO and observation-shard the "
+                         "plane BA over this many ranks")
     sl.add_argument("--min-loop-overlap", type=float, default=30.0)
     sl.add_argument("--min-keyframe-gap", type=int, default=2)
     sl.add_argument("--max-loop-distance", type=float, default=15.0)
@@ -367,8 +418,7 @@ def build_parser() -> argparse.ArgumentParser:
     lz.add_argument("directory", help="recorded sequence dir")
     lz.add_argument("--map", required=True, help="prior map (.pcd/.bin)")
     lz.add_argument("--mesh-devices", type=int, default=1,
-                    help=">1: the map sharded over a mesh (not ported: "
-                         "raises)")
+                    help=">1: one Morton block of the map per rank")
     lz.add_argument("--trim-ratio", type=float, default=0.7)
     lz.add_argument("--max-correction", type=float, default=0.5)
     lz.add_argument("--output-poses", default="")

@@ -98,30 +98,56 @@ def app_state_from_numpy(app: App, ref_points, ref_mask, ref_normals,
 
 
 def localizer_state_to_numpy(loc: ShardedMapLocalizer) -> dict:
-    """The localizer's prepared map (Morton-ordered, padded points, mask
-    and normals), its App's state and its frame counter, as numpy."""
-    return dict(map_points=_np(loc.map_points), map_mask=_np(loc.map_mask),
-                map_normals=_np(loc.map_normals),
+    """The localizer's prepared map in its blocked layout — per-block
+    points (D, B, 3), masks (D, B) and normals (D, B, 3), the block size B
+    and the crop key's `rev_bits` — with its App's state and its frame
+    counter, as numpy. Over a mesh, rank 0 calls this while the other
+    ranks `serve` (the blocks are gathered from them)."""
+    points, mask, normals = loc.map_blocks()
+    return dict(map_points=_np(points), map_mask=_np(mask),
+                map_normals=_np(normals), block_size=loc.block_size,
+                rev_bits=loc._rev_bits,
                 app=app_state_to_numpy(loc.app), frame_idx=loc._frame_idx)
 
 
 def localizer_from_state(state: dict, config: ICPConfig | None = None, *,
-                         device="cuda", **options) -> ShardedMapLocalizer:
-    """A localizer on `device` over the prepared map of
-    `localizer_state_to_numpy`'s `state` — its points, mask and normals as
-    they are, so no normals pass runs — seeded with its App state and
-    frame counter. `config` and `options` are `ShardedMapLocalizer`'s,
-    less those that prepare the map (`normal_radius`, `block_cell`)."""
+                         device="cuda", mesh=None, axis: str = "points",
+                         **options) -> ShardedMapLocalizer:
+    """A localizer on `device` over the prepared blocks of
+    `localizer_state_to_numpy`'s `state` — points, masks and normals as
+    they are, so no normals pass runs — seeded with its App state (None:
+    a fresh App) and frame counter. Over `mesh` (SPMD: every rank calls
+    this) each rank holds its block of `axis`; without one the localizer
+    holds every block, which crops the same rows. The state may come from
+    the JAX package's localizer (its sharded map arrays reshaped into
+    blocks). `config` and `options` are `ShardedMapLocalizer`'s, less
+    those that prepare the map (`normal_radius`, `block_cell`)."""
+    check_device(device if mesh is None else mesh.device,
+                 "localizer_from_state")
+    points = np.asarray(state["map_points"], np.float32)
+    mask = np.asarray(state["map_mask"], bool)
+    normals = np.asarray(state["map_normals"], np.float32)
+    n_blocks = points.shape[0]
+    if mesh is not None:
+        if mesh.shape[axis] != n_blocks:
+            raise ValueError(f"{n_blocks} blocks over {mesh.shape[axis]} "
+                             f"ranks of axis {axis!r}")
+        i = mesh.index(axis)
+        points, mask, normals = points[i], mask[i], normals[i]
+    points, mask, normals = (points.reshape(-1, 3), mask.reshape(-1),
+                             normals.reshape(-1, 3))
     loc = ShardedMapLocalizer.__new__(ShardedMapLocalizer)
-    loc._setup(config, device, **options)
+    loc._setup(config, device, mesh=mesh, axis=axis, **options)
     dev = loc.device
-    loc._set_map(
-        torch.as_tensor(np.asarray(state["map_points"], np.float32),
-                        device=dev),
-        torch.as_tensor(np.asarray(state["map_mask"], bool), device=dev),
-        torch.as_tensor(np.asarray(state["map_normals"], np.float32),
-                        device=dev))
-    app_state_from_numpy(loc.app, **state["app"])
+    loc._set_map(torch.as_tensor(points, device=dev),
+                 torch.as_tensor(mask, device=dev),
+                 torch.as_tensor(normals, device=dev),
+                 n_blocks if mesh is not None else 1)
+    if loc._rev_bits != int(state["rev_bits"]):
+        raise ValueError(f"rev_bits {state['rev_bits']} of the state, "
+                         f"{loc._rev_bits} of its blocks")
+    if loc.app is not None and state.get("app") is not None:
+        app_state_from_numpy(loc.app, **state["app"])
     loc._frame_idx = int(state["frame_idx"])
     return loc
 

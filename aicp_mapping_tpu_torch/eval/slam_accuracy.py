@@ -240,12 +240,15 @@ def load_frontend_snapshot(path: str, device="cuda"):
     return _SnapshotApp(cfg, records, dev), z["gt"], meta
 
 
-def run_backend(app, gt, meta, use_plane_ba: bool = True) -> dict:
+def run_backend(app, gt, meta, use_plane_ba: bool = True,
+                mesh=None) -> dict:
     """Loop closures + PGO (+ plane BA) on a completed front-end, on the
-    App's device; returns the regression record."""
+    App's device; returns the regression record. With `mesh` (rank 0 of a
+    1-D "graph" mesh whose other ranks run `mapper.serve_backend`) the PGO
+    and BA are sharded over it."""
     from ..pipeline.mapper import PoseGraphMapper
 
-    mapper = PoseGraphMapper(app, **MAPPER_KW)
+    mapper = PoseGraphMapper(app, mesh=mesh, **MAPPER_KW)
     kfs_pre = mapper.keyframes()
     ate_pre = _keyframe_ate(kfs_pre, gt)
 

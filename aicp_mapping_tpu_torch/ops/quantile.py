@@ -37,23 +37,36 @@ def _linspace_f32(start: float, stop: float, num: int,
 
 
 def masked_quantile_hist(values: torch.Tensor, mask: torch.Tensor, q,
-                         bins: int = 128, rounds: int = 2) -> torch.Tensor:
+                         bins: int = 128, rounds: int = 2,
+                         axis_name: str | None = None,
+                         mesh=None) -> torch.Tensor:
     """Approximate masked quantile by iterative range-narrowing histograms
     (`rounds` x `bins` cumulative counts, no sort), as in the JAX twin.
     `q` may be a 0-d tensor; the result is a 0-d float32 tensor on the
-    device of `values`, computed without a host sync."""
+    device of `values`, computed without a host sync.
+
+    With `axis_name` (values sharded over that axis of `mesh`) the valid
+    count and the bin counts are `psum`-reduced and the range `pmax`-ed,
+    so every rank gets the same global quantile: `rounds` x `bins` floats
+    and two scalars per call, never the values."""
+    def preduce(x):
+        return x if axis_name is None else mesh.psum(x, axis_name)
+
     dev = values.device
-    n = mask.to(torch.float32).sum()
+    n = preduce(mask.to(torch.float32).sum())
     target = torch.ceil(q * n)
     lo = torch.zeros((), dtype=torch.float32, device=dev)
     hi = torch.where(mask, values, -_BIG).max()
+    if axis_name is not None:
+        hi = mesh.pmax(hi, axis_name)
     hi = torch.clamp(hi, min=1e-12)
     vm = torch.where(mask, values, _BIG)
     base = _linspace_f32(1.0 / bins, 1.0, bins, dev)
     for _ in range(rounds):
         edges = lo + (hi - lo) * base
         # counts[b] = #values <= edges[b] (cumulative by construction)
-        counts = (vm[:, None] <= edges[None, :]).sum(0).to(torch.float32)
+        counts = preduce((vm[:, None] <= edges[None, :]).sum(0).to(
+            torch.float32))
         meets = counts >= target
         b = torch.argmax(meets.to(torch.int32))       # first bracketing bin
         b = torch.where(meets.any(), b, bins - 1)

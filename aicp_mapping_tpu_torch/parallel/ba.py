@@ -14,8 +14,10 @@ JAX takes the Jacobians from `jax.jacfwd` of `plane_residual` at the
 identity perturbation (left-multiplicative se(3) on the pose, additive on
 the plane); here they are written out (`_linearize`) and held to jacfwd's
 in the tests. Block accumulations are one-hot products (`posegraph.
-scatter_add`), so a solve gives the same bits on every run. The
-observation-sharded solver is ROADMAP Q1 #13.
+scatter_add`), so a solve gives the same bits on every run.
+`optimize_plane_ba_sharded` shards the observations over a mesh axis: each
+rank accumulates its shard's blocks and one `psum` per step sums them; the
+reduced Schur solve runs replicated.
 """
 from __future__ import annotations
 
@@ -90,12 +92,16 @@ def _linearize(T, lm, meas):
 
 def _accumulate(poses, landmarks, obs_k, obs_l, obs_plane, obs_w, obs_mask,
                 K: int, L: int, robust_sigma_n: float = 0.0,
-                robust_sigma_e: float = 0.0):
+                robust_sigma_e: float = 0.0, dtype=torch.float32):
     """Block accumulation. With `robust_sigma_n`/`robust_sigma_e` > 0 each
     observation is IRLS-reweighted by a Huber kernel on its normalized
     residual rho = sqrt(|r_n|^2/sigma_n^2 + r_e^2/sigma_e^2) (scale
     min(1, 1/rho)). Returns (Hpp (K,6,6), Hpl (K,L,6,4), Hll (L,4,4),
-    gp (K,6), gl (L,4), chi2 scalar)."""
+    gp (K,6), gl (L,4), chi2 scalar) in `dtype`. The per-observation terms
+    are float32; they are summed in float64 and rounded once, so a sum over
+    shards (in float64, then rounded) gives the blocks of the unsharded
+    sum: in float32 the urban drive's reduced pose system turns the
+    rounding of a different summation order into 2e-5 m of pose."""
     r, Jp, Jl = _linearize(poses[obs_k], landmarks[obs_l], obs_plane)
     w_eff = obs_w * obs_mask.to(torch.float32)
     if robust_sigma_n > 0.0 and robust_sigma_e > 0.0:
@@ -111,16 +117,18 @@ def _accumulate(poses, landmarks, obs_k, obs_l, obs_plane, obs_w, obs_mask,
     gp_o = -torch.einsum("oab,oa->ob", Jp * w, r)    # (O, 6)
     gl_o = -torch.einsum("oab,oa->ob", Jl * w, r)    # (O, 4)
 
-    sel_k = one_hot(torch.where(obs_mask, obs_k, K), K)
-    sel_l = one_hot(torch.where(obs_mask, obs_l, L), L)
-    sel_kl = one_hot(torch.where(obs_mask, obs_k * L + obs_l, K * L), K * L)
-    Hpp = scatter_add(sel_k, A)
-    Hll = scatter_add(sel_l, C)
-    Hpl = scatter_add(sel_kl, Bo).reshape(K, L, 6, 4)
-    gp = scatter_add(sel_k, gp_o)
-    gl = scatter_add(sel_l, gl_o)
-    chi2 = (w_eff * (r * r).sum(1)).sum()
-    return Hpp, Hpl, Hll, gp, gl, chi2
+    f64 = torch.float64
+    sel_k = one_hot(torch.where(obs_mask, obs_k, K), K, f64)
+    sel_l = one_hot(torch.where(obs_mask, obs_l, L), L, f64)
+    sel_kl = one_hot(torch.where(obs_mask, obs_k * L + obs_l, K * L), K * L,
+                     f64)
+    Hpp = scatter_add(sel_k, A.to(f64))
+    Hll = scatter_add(sel_l, C.to(f64))
+    Hpl = scatter_add(sel_kl, Bo.to(f64)).reshape(K, L, 6, 4)
+    gp = scatter_add(sel_k, gp_o.to(f64))
+    gl = scatter_add(sel_l, gl_o.to(f64))
+    chi2 = (w_eff * (r * r).sum(1)).to(f64).sum()
+    return tuple(b.to(dtype) for b in (Hpp, Hpl, Hll, gp, gl, chi2))
 
 
 def _graph_edge_blocks(poses, edges, edge_Z, edge_w, edge_mask, K: int,
@@ -200,29 +208,67 @@ def optimize_plane_ba(problem: PlaneBA, gn_iters: int = 6,
     (odometry + loop closures, see `_graph_edge_blocks`). Returns (poses,
     landmarks, chi2 at the last step's linearization point); reads nothing
     back to the host."""
+    return _gauss_newton(problem, gn_iters, lm_damping, pose_damping,
+                         gauge_weight, robust_sigma_n, robust_sigma_e,
+                         (graph_edges, graph_Z, graph_w, graph_mask),
+                         edge_robust_delta, lambda blocks: blocks)
+
+
+def optimize_plane_ba_sharded(problem: PlaneBA, mesh, axis: str = "graph",
+                              gn_iters: int = 6, lm_damping: float = 1e-4,
+                              pose_damping: float = 1e-6,
+                              gauge_weight: float = 1e6,
+                              robust_sigma_n: float = 0.0,
+                              robust_sigma_e: float = 0.0,
+                              graph_edges=None, graph_Z=None, graph_w=None,
+                              graph_mask=None,
+                              edge_robust_delta: float = 0.0):
+    """The solve of `optimize_plane_ba` with the observations sharded over
+    `mesh`'s `axis`: every rank of the mesh calls it with the whole problem
+    (pad with `pad_observations` so O divides evenly), accumulates its
+    shard's H/g blocks, and one `psum` per step sums them; the reduced
+    (6K x 6K) Schur solve, the state update and the pose-graph edge blocks
+    run replicated. Returns (poses, landmarks, chi2_final) on every
+    rank."""
+    rows = mesh.shard(problem.obs_k.shape[0], axis)
+    dev = mesh.device
+
+    def on(t):
+        return t[rows].to(dev).contiguous()
+
+    local = PlaneBA(problem.poses.to(dev), problem.landmarks.to(dev),
+                    on(problem.obs_k), on(problem.obs_l),
+                    on(problem.obs_plane), on(problem.obs_w),
+                    on(problem.obs_mask))
+    edges = tuple(None if t is None else t.to(dev)
+                  for t in (graph_edges, graph_Z, graph_w, graph_mask))
+    return _gauss_newton(local, gn_iters, lm_damping, pose_damping,
+                         gauge_weight, robust_sigma_n, robust_sigma_e, edges,
+                         edge_robust_delta,
+                         lambda blocks: mesh.psum_many(blocks, axis))
+
+
+def _gauss_newton(problem: PlaneBA, gn_iters, lm_damping, pose_damping,
+                  gauge_weight, robust_sigma_n, robust_sigma_e, graph,
+                  edge_robust_delta, reduce):
+    """The Gauss-Newton loop over `problem`'s observations, with `reduce`
+    summing the accumulated blocks over the observation shards (the
+    identity on one device)."""
     K, L = problem.n_poses, problem.n_landmarks
     poses, lms = problem.poses, problem.landmarks
     chi2 = None
     for _ in range(gn_iters):
-        blocks = _accumulate(poses, lms, problem.obs_k, problem.obs_l,
-                             problem.obs_plane, problem.obs_w,
-                             problem.obs_mask, K, L, robust_sigma_n,
-                             robust_sigma_e)
+        blocks = [b.to(torch.float32) for b in reduce(_accumulate(
+            poses, lms, problem.obs_k, problem.obs_l, problem.obs_plane,
+            problem.obs_w, problem.obs_mask, K, L, robust_sigma_n,
+            robust_sigma_e, torch.float64))]
         eb = None
-        if graph_edges is not None:
-            eb = _graph_edge_blocks(poses, graph_edges, graph_Z, graph_w,
-                                    graph_mask, K, edge_robust_delta)
+        if graph[0] is not None:
+            eb = _graph_edge_blocks(poses, *graph, K, edge_robust_delta)
         poses, lms = _schur_step(poses, lms, blocks, lm_damping,
                                  pose_damping, gauge_weight, eb)
         chi2 = blocks[5]
     return poses, lms, chi2
-
-
-def optimize_plane_ba_sharded(problem: PlaneBA, mesh, axis: str = "graph",
-                              **kwargs):
-    raise NotImplementedError(
-        "optimize_plane_ba_sharded: the observation-sharded solver over a "
-        "device mesh is ROADMAP Q1 #13; use optimize_plane_ba")
 
 
 def pad_observations(problem: PlaneBA, multiple: int) -> PlaneBA:

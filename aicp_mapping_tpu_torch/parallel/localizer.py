@@ -1,14 +1,25 @@
 """Frame-to-map localization against a large prior map, PyTorch port of
-the single-device path of `aicp_mapping_tpu.parallel.localizer`.
+`aicp_mapping_tpu.parallel.localizer`.
 
-The map is Morton-ordered and padded once on the host, its radius normals
-are computed once at load on the device, and every frame registers against
-a crop of it around the current pose estimate through the port's App in
-prior-map mode — the reference's load-map + localization-only mode.
+The map is Morton-ordered and padded once on the host and split into one
+spatially coherent block per rank of a mesh axis (one block without a
+mesh); each block's radius normals are computed once at load on its rank's
+device, and every frame registers against a crop of the map around the
+current pose estimate through the port's App in prior-map mode — the
+reference's load-map + localization-only mode.
 
     loc = ShardedMapLocalizer(map_points_np, icp_config, device="cuda")
     for utime, pts, odom in stream:
         T = loc.localize(pts, odom)        # corrected world pose
+
+Over a mesh (SPMD construction, single-controller frames):
+
+    loc = ShardedMapLocalizer(map_points_np, icp_config, mesh=mesh)
+    if mesh.rank == 0:
+        poses = [loc.localize(pts, odom) for _, pts, odom in stream]
+        loc.stop_serving()
+    else:
+        loc.serve()                        # crops until rank 0 stops
 """
 from __future__ import annotations
 
@@ -55,49 +66,63 @@ def _bitrev(v: torch.Tensor, bits: int) -> torch.Tensor:
 class ShardedMapLocalizer:
     """Frame-to-map localization through the App state machine.
 
-    The JAX class shards the map over a device mesh; this one holds it as
-    one block on `device`, i.e. the JAX class on a mesh of one device. The
-    `mesh` argument and the sharded crop arrive with distribution (ROADMAP
-    Q1 #13).
-
-    At load: Morton order (`block_cell`), padding to a multiple of 1,024
-    with masked rows, and `radius_normals` of the whole map (viewpoint-free:
-    the point-to-plane residual is sign-invariant).
-    `convert.localizer_from_state` builds one over another's prepared map
-    instead, without the normals pass.
+    At load: Morton order (`block_cell`); blocks of max(1024, ceil(N / D))
+    rows rounded up to 1,024, one per rank of `mesh`'s `axis` (D ranks;
+    one block on `device` without a mesh), padded with masked rows; and
+    `radius_normals` of each block on its own rank (viewpoint-free: the
+    point-to-plane residual is sign-invariant; the Z-order seams between
+    blocks see only their own block's neighbours, as in JAX).
+    `convert.localizer_from_state` builds one over another's prepared
+    blocks instead, without the normals pass.
 
     Per frame, `provide_reference` crops the map around the pose estimate
     (`crop_radius`) and compacts the crop to `out_capacity` points on the
-    device; `localize` runs the App's prior-map frame (overlap pinned at 50,
-    debug working mode, trim floor and ceiling pinned to `trim_ratio`)."""
+    device, keyed by (outside the box, bit-reversed global row); over a
+    mesh each rank keys and cuts its own block and rank 0 merges the
+    candidates by the same keys, which gives the rows of one global sort.
+    `localize` runs the App's prior-map frame (overlap pinned at 50, debug
+    working mode, trim floor and ceiling pinned to `trim_ratio`). Over a
+    mesh the construction is SPMD, and rank 0 alone holds the App and
+    localizes while the other ranks `serve` its crops."""
 
     def __init__(self, map_points: np.ndarray,
-                 config: Optional[ICPConfig] = None, *, device="cuda",
+                 config: Optional[ICPConfig] = None, *, mesh=None,
+                 axis: str = "points", device="cuda",
                  normal_radius: float = 0.4, trim_ratio: float = 0.7,
                  max_correction_magnitude: float = 0.0,
                  block_cell: float = 1.0,
                  pipeline_config: Optional[PipelineConfig] = None,
                  crop_radius: float = 16.0, out_capacity: int = 8192):
-        self._setup(config, device, trim_ratio=trim_ratio,
+        self._setup(config, device, mesh=mesh, axis=axis,
+                    trim_ratio=trim_ratio,
                     max_correction_magnitude=max_correction_magnitude,
                     pipeline_config=pipeline_config, crop_radius=crop_radius,
                     out_capacity=out_capacity)
         pts = np.asarray(map_points, np.float32).reshape(-1, 3)
         pts = pts[morton_argsort_np(pts, cell=block_cell)]
-        cap = -(-max(len(pts), 1024) // 1024) * 1024
-        padded = np.zeros((cap, 3), np.float32)
+        n_blocks = 1 if mesh is None else mesh.shape[axis]
+        block = max(1024, -(-len(pts) // n_blocks))
+        block = -(-block // 1024) * 1024
+        padded = np.zeros((block * n_blocks, 3), np.float32)
         padded[:len(pts)] = pts
-        points = torch.as_tensor(padded, device=self.device)
-        mask = torch.as_tensor(np.arange(cap) < len(pts), device=self.device)
+        i = 0 if mesh is None else mesh.index(axis)
+        rows = slice(i * block, (i + 1) * block)
+        points = torch.as_tensor(padded[rows], device=self.device)
+        mask = torch.as_tensor(np.arange(block * n_blocks)[rows] < len(pts),
+                               device=self.device)
         normals, _, _ = radius_normals(points, mask, normal_radius)
-        self._set_map(points, mask, normals)
+        self._set_map(points, mask, normals, n_blocks)
 
     def _setup(self, config: Optional[ICPConfig] = None, device="cuda", *,
+               mesh=None, axis: str = "points",
                trim_ratio: float = 0.7, max_correction_magnitude: float = 0.0,
                pipeline_config: Optional[PipelineConfig] = None,
                crop_radius: float = 16.0, out_capacity: int = 8192) -> None:
-        """Everything but the map: the App in prior-map mode and the crop."""
-        self.device = check_device(device, "ShardedMapLocalizer")
+        """Everything but the map: the App in prior-map mode (on rank 0 of
+        a mesh) and the crop."""
+        self.mesh, self.axis = mesh, axis
+        self.device = check_device(device if mesh is None else mesh.device,
+                                   "ShardedMapLocalizer")
         self.cfg = config or ICPConfig()
         self.out_capacity = int(out_capacity)
         self.crop_radius = float(crop_radius)
@@ -117,33 +142,78 @@ class ShardedMapLocalizer:
             # explicit trim by narrowing the clamp window
             pcfg.trim_ratio_floor = float(trim_ratio)
             pcfg.trim_ratio_ceil = float(trim_ratio)
-        self.app = App(pcfg, device=self.device, reference_provider=self)
+        self.app = (App(pcfg, device=self.device, reference_provider=self)
+                    if mesh is None or mesh.rank == 0 else None)
         self.last_result = None
 
     def _set_map(self, points: torch.Tensor, mask: torch.Tensor,
-                 normals: torch.Tensor) -> None:
-        """Hold a prepared (Morton-ordered, padded) map and its normals."""
-        cap = points.shape[0]
+                 normals: torch.Tensor, n_blocks: int = 1) -> None:
+        """Hold this rank's block of a prepared (Morton-ordered, padded)
+        map of `n_blocks` equal blocks, and its normals."""
+        block = points.shape[0]
         self.map_points, self.map_mask, self.map_normals = (
             points, mask, normals)
-        # bit-reversal width sized to the map capacity, so that a crop of
-        # more than out_capacity points keeps a uniform sample of it
-        self._rev_bits = max(17, int(np.ceil(np.log2(max(cap, 2)))))
-        self._spread = _bitrev(torch.arange(cap, device=self.device),
+        self.block_size, self.n_blocks = block, n_blocks
+        # bit-reversal width sized to the whole map's capacity, so that a
+        # crop of more than out_capacity points keeps a uniform sample of
+        # it; keyed by the global row
+        self._rev_bits = max(17, int(np.ceil(np.log2(max(block * n_blocks,
+                                                         2)))))
+        first = 0 if self.mesh is None else self.mesh.index(self.axis) * block
+        self._spread = _bitrev(torch.arange(first, first + block,
+                                            device=self.device),
                                self._rev_bits)
 
     def provide_reference(self, pose_est: np.ndarray):
         """App.reference_provider hook: the map's points in the box of
         half-width `crop_radius` around the pose, with their normals,
         compacted to `out_capacity` by one sort on (outside the box,
-        bit-reversed row index). The crop stays on the device."""
+        bit-reversed global row index). The crop stays on the device; over
+        a mesh every rank crops its block (`send` from rank 0)."""
         pose = torch.as_tensor(np.asarray(pose_est, np.float32),
                                device=self.device)
+        if self.mesh is not None:
+            self.mesh.send("crop", [pose])
+        return self._crop(pose)
+
+    def _crop(self, pose: torch.Tensor):
         r = self.crop_radius
         inbox = crop_box(self.map_points, self.map_mask, pose, -r, r)
         key = ((~inbox).to(torch.int64) << self._rev_bits) | self._spread
         perm = torch.sort(key).indices[:self.out_capacity]
-        return self.map_points[perm], inbox[perm], self.map_normals[perm]
+        if self.mesh is None:
+            return self.map_points[perm], inbox[perm], self.map_normals[perm]
+        # each block's first out_capacity rows hold the global sort's first
+        # out_capacity rows among its own; the keys are unique
+        cand = torch.cat([self.map_points[perm], self.map_normals[perm],
+                          inbox[perm][:, None].to(torch.float32)], 1)
+        keys = self.mesh.all_gather(key[perm], self.axis).reshape(-1)
+        cand = self.mesh.all_gather(cand, self.axis).reshape(-1, 7)
+        rows = cand[torch.sort(keys).indices[:self.out_capacity]]
+        return (rows[:, :3].contiguous(), rows[:, 6] > 0.5,
+                rows[:, 3:6].contiguous())
+
+    def map_blocks(self):
+        """Every block's (points (D, B, 3), mask (D, B), normals (D, B, 3));
+        over a mesh, gathered from the ranks (rank 0 `send`s)."""
+        if self.mesh is None:
+            return (self.map_points[None], self.map_mask[None],
+                    self.map_normals[None])
+        if self.mesh.rank == 0:
+            self.mesh.send("blocks")
+        return tuple(self.mesh.all_gather(t, self.axis) for t in (
+            self.map_points, self.map_mask, self.map_normals))
+
+    def serve(self) -> None:
+        """Ranks >= 1 of a mesh: crop (or gather the blocks) for rank 0's
+        frames until it calls `stop_serving`."""
+        self.mesh.serve({"crop": lambda t, o: self._crop(t[0]),
+                         "blocks": lambda t, o: self.map_blocks()})
+
+    def stop_serving(self) -> None:
+        """Rank 0 of a mesh: release the serving ranks."""
+        if self.mesh is not None:
+            self.mesh.stop_serving()
 
     @property
     def total_correction(self) -> np.ndarray:

@@ -13,7 +13,9 @@ matrix, so a solve gives the same bits on every run (float atomics, as
 `while_loop` inside a `scan` over Gauss-Newton steps; here both loops run
 their fixed lengths with no host read: a CG iteration whose residual is
 already below the tolerance leaves the state as it was, which is what the
-`while_loop` computes. The edge-sharded solver is ROADMAP Q1 #13.
+`while_loop` computes. `optimize_pose_graph_sharded` is the same solve with
+the edges sharded over a mesh axis: each rank's node-indexed sums (b, the
+diagonal blocks, chi^2, every PCG mat-vec) are `psum`-reduced.
 
 `optimize_pose_graph` solves in float64 on every device and returns the
 input's dtype. In float32 (JAX's precision) the Gauss-Newton iterates of a
@@ -150,6 +152,38 @@ def optimize_pose_graph(graph: PoseGraph, gn_iters: int = 8,
     docstring). Returns (optimized poses (K, 4, 4), chi2 history
     (gn_iters + 1,)) in the input's dtype; reads nothing back to the
     host."""
+    return _gauss_newton(graph, gn_iters, cg_iters, damping, robust_delta,
+                         lambda *xs: xs)
+
+
+def optimize_pose_graph_sharded(graph: PoseGraph, mesh, axis: str = "edges",
+                                gn_iters: int = 8, cg_iters: int = 48,
+                                damping: float = 1e-6,
+                                robust_delta: float = 0.0):
+    """The solve of `optimize_pose_graph` with the edges sharded over
+    `mesh`'s `axis` and the poses replicated: every rank of the mesh calls
+    it with the whole graph and keeps its rows of the edges; b, the
+    diagonal blocks and chi^2 take one `psum` per Gauss-Newton step and
+    each PCG mat-vec one more. Requires n_edges % axis size == 0 (pad with
+    `pad_edges`). Returns (poses, chi2 history) on every rank."""
+    rows = mesh.shard(graph.n_edges, axis)
+
+    def on(t):
+        return t[rows].to(mesh.device).contiguous()
+
+    local = PoseGraph(graph.poses.to(mesh.device), on(graph.edges),
+                      on(graph.measurements), on(graph.weights),
+                      on(graph.edge_mask))
+
+    return _gauss_newton(local, gn_iters, cg_iters, damping, robust_delta,
+                         lambda *xs: mesh.psum_many(xs, axis))
+
+
+def _gauss_newton(graph: PoseGraph, gn_iters: int, cg_iters: int,
+                  damping: float, robust_delta: float, reduce):
+    """The Gauss-Newton + PCG loop over `graph`'s edges, with `reduce`
+    summing node-indexed tensors over the edge shards (the identity on one
+    device)."""
     K = graph.n_poses
     dev = graph.poses.device
     f64 = torch.float64
@@ -162,12 +196,14 @@ def optimize_pose_graph(graph: PoseGraph, gn_iters: int = 8,
     chi2s = []
     for _ in range(gn_iters):
         b, Hdiag, (_, Ji, Jj, w), chi2 = _edge_reduce(poses, *args)
+        b, Hdiag, chi2 = reduce(b, Hdiag, chi2)
         lam = damping * (1.0 + torch.diagonal(Hdiag, dim1=-2,
                                               dim2=-1).sum(-1).mean())
         Minv = torch.linalg.inv_ex(Hdiag + lam * eye6).inverse
 
         def A(x):
-            return _gauge_fix(_matvec(x, edges, Ji, Jj, w, K, sel) + lam * x)
+            (hx,) = reduce(_matvec(x, edges, Ji, Jj, w, K, sel))
+            return _gauge_fix(hx + lam * x)
 
         def apply_M(x):
             return _gauge_fix(torch.einsum("kab,kb->ka", Minv, x))
@@ -191,16 +227,9 @@ def optimize_pose_graph(graph: PoseGraph, gn_iters: int = 8,
             zz = torch.where(live, zz_new, zz)
         poses = poses @ se3.se3_exp(x)
         chi2s.append(chi2)
-    chi2s.append(_edge_reduce(poses, *args)[3])
+    chi2s.append(reduce(_edge_reduce(poses, *args)[3])[0])
     dtype = graph.poses.dtype
     return poses.to(dtype), torch.stack(chi2s).to(dtype)
-
-
-def optimize_pose_graph_sharded(graph: PoseGraph, mesh, axis: str = "edges",
-                                **kwargs):
-    raise NotImplementedError(
-        "optimize_pose_graph_sharded: the edge-sharded solver over a device "
-        "mesh is ROADMAP Q1 #13; use optimize_pose_graph")
 
 
 def pad_edges(edges, measurements, weights, multiple: int):

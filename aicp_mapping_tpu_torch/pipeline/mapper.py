@@ -15,7 +15,12 @@
 The back-end runs on the App's device. It reads the device only where a
 value decides what runs next (a closure gate, the correlation search, the
 consistency test, BA's trust region) and counts those reads
-(`backend_counts`); the mesh-sharded solvers are ROADMAP Q1 #13.
+(`backend_counts`).
+
+With a mesh (`PoseGraphMapper(app, mesh=..., mesh_axis=...)`) the PGO is
+edge-sharded and the plane BA observation-sharded over the mesh axis. The
+mapper runs on rank 0 (with its App) and `send`s each solve to the other
+ranks, which wait in `serve_backend`.
 """
 from __future__ import annotations
 
@@ -28,7 +33,8 @@ import torch
 from ..cloud import Cloud
 from ..ops.normals import radius_normals
 from ..overlap.voxel_overlap import compute_overlap
-from ..parallel.posegraph import PoseGraph, optimize_pose_graph
+from ..parallel.posegraph import (PoseGraph, optimize_pose_graph,
+                                  optimize_pose_graph_sharded, pad_edges)
 from ..registration.icp import clamp_trim_ratio, point_to_plane_icp
 
 # Back-end work since the last reset: candidate pairs registered, ICP calls
@@ -78,8 +84,25 @@ class LoopClosure:
     info: Optional[np.ndarray] = None
 
 
+def serve_backend(mesh, axis: str = "graph") -> None:
+    """Ranks >= 1 of a mesh-sharded back-end: join rank 0's PGO and BA
+    solves (`PoseGraphMapper` with this mesh) until it calls
+    `mesh.stop_serving()`."""
+    from ..parallel.ba import PlaneBA, optimize_plane_ba_sharded
+
+    def pgo(t, o):
+        optimize_pose_graph_sharded(PoseGraph(*t), mesh, axis=axis, **o)
+
+    def ba(t, o):
+        optimize_plane_ba_sharded(PlaneBA(*t[:7]), mesh, axis=axis,
+                                  graph_edges=t[7], graph_Z=t[8],
+                                  graph_w=t[9], graph_mask=t[10], **o)
+
+    mesh.serve({"pgo": pgo, "ba": ba})
+
+
 class PoseGraphMapper:
-    def __init__(self, app, mesh=None,
+    def __init__(self, app, mesh=None, mesh_axis: str = "graph",
                  min_loop_overlap: float = 35.0,
                  min_keyframe_gap: int = 3,
                  max_loop_distance: float = 10.0,
@@ -91,11 +114,8 @@ class PoseGraphMapper:
                  closure_rms: float = 0.3,
                  closure_degeneracy: float = 30.0,
                  closure_info_floor: float = 150.0):
-        if mesh is not None:
-            raise NotImplementedError(
-                "PoseGraphMapper(mesh=...): the mesh-sharded PGO and plane BA "
-                "are ROADMAP Q1 #13; pass mesh=None")
         self.app = app
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self.device = torch.device(app.device)
         self.min_loop_overlap = min_loop_overlap
         self.min_keyframe_gap = min_keyframe_gap
@@ -360,9 +380,7 @@ class PoseGraphMapper:
             return kfs
         opt_np = None
         for _round in range(3):
-            opt, _ = optimize_pose_graph(self.build_graph(kfs),
-                                         gn_iters=gn_iters,
-                                         robust_delta=self.pgo_robust_delta)
+            opt, _ = self._solve_pgo(self.build_graph(kfs), gn_iters)
             (opt_np,) = _read(opt)
             keep = []
             for lc in self.loop_closures:
@@ -374,6 +392,19 @@ class PoseGraphMapper:
                 break
             self.loop_closures = keep
         return self._apply_poses(kfs, opt_np)
+
+    def _solve_pgo(self, graph: PoseGraph, gn_iters: int):
+        """The PGO, edge-sharded over the mesh when there is one (edges
+        padded to a multiple of the axis size, masked)."""
+        opts = dict(gn_iters=gn_iters, robust_delta=self.pgo_robust_delta)
+        if self.mesh is None:
+            return optimize_pose_graph(graph, **opts)
+        e, z, w, m = pad_edges(graph.edges, graph.measurements,
+                               graph.weights, self.mesh.shape[self.mesh_axis])
+        graph = PoseGraph(graph.poses, e, z, w, m)
+        self.mesh.send("pgo", [graph.poses, e, z, w, m], **opts)
+        return optimize_pose_graph_sharded(graph, self.mesh,
+                                           axis=self.mesh_axis, **opts)
 
     def _apply_poses(self, kfs: list[Keyframe],
                      opt_np: np.ndarray) -> list[Keyframe]:
@@ -412,7 +443,9 @@ class PoseGraphMapper:
         `last_ba_summary["ran"]` is False. `pose_damping` pins each pose
         to its current estimate (planes leave in-plane directions free)."""
         from ..parallel.ba import (build_plane_ba, extract_planes,
-                                   optimize_plane_ba)
+                                   optimize_plane_ba,
+                                   optimize_plane_ba_sharded,
+                                   pad_observations)
 
         kfs = self.keyframes()
         self.last_ba_summary = {"ran": False, "reason": "too few keyframes"}
@@ -447,12 +480,25 @@ class PoseGraphMapper:
         # JOINT refinement with the pose graph's edges (odometry chain + the
         # verified, info-weighted loop closures)
         graph = self.build_graph(kfs)
-        opt, _, _ = optimize_plane_ba(
-            prob, gn_iters=gn_iters, pose_damping=pose_damping,
-            robust_sigma_n=robust_sigma_n, robust_sigma_e=robust_sigma_e,
-            graph_edges=graph.edges, graph_Z=graph.measurements,
-            graph_w=graph.weights, graph_mask=graph.edge_mask,
-            edge_robust_delta=self.pgo_robust_delta)
+        opts = dict(gn_iters=gn_iters, pose_damping=pose_damping,
+                    robust_sigma_n=robust_sigma_n,
+                    robust_sigma_e=robust_sigma_e,
+                    edge_robust_delta=self.pgo_robust_delta)
+        edges = (graph.edges, graph.measurements, graph.weights,
+                 graph.edge_mask)
+        if self.mesh is None:
+            opt, _, _ = optimize_plane_ba(
+                prob, graph_edges=edges[0], graph_Z=edges[1],
+                graph_w=edges[2], graph_mask=edges[3], **opts)
+        else:
+            prob = pad_observations(prob, self.mesh.shape[self.mesh_axis])
+            self.mesh.send("ba", [prob.poses, prob.landmarks, prob.obs_k,
+                                  prob.obs_l, prob.obs_plane, prob.obs_w,
+                                  prob.obs_mask, *edges], **opts)
+            opt, _, _ = optimize_plane_ba_sharded(
+                prob, self.mesh, axis=self.mesh_axis, graph_edges=edges[0],
+                graph_Z=edges[1], graph_w=edges[2], graph_mask=edges[3],
+                **opts)
         (opt,) = _read(opt)
         deltas = np.linalg.norm(opt[:, :3, 3] - poses[:, :3, 3], axis=1)
         if not np.all(np.isfinite(opt)) or deltas.max() > max_pose_delta:

@@ -27,17 +27,19 @@ from ..cloud import AlignedCloud, Cloud, _dequantize
 from ..io.pcd import write_pcd
 from ..io.poses import PoseWithTime, read_pose_csv, write_pose_csv
 from ..tools.synthetic import room_cloud
-from .app import FrameResult
+from .app import FrameResult, check_device
 from .config import PipelineConfig
 
 
 def wire_cloud(cfg: PipelineConfig, pts: np.ndarray,
-               capacity: Optional[int] = None, device="cpu") -> Cloud:
+               capacity: Optional[int] = None, device="cuda") -> Cloud:
     """One cloud prepared per the config's wire format and put on
-    `device`: with `wire_voxel` the host voxel grid first (the cloud is then
-    marked `pre_voxelized`, at `downsample_capacity`), with
+    `device` (the card unless the caller asks for the CPU; without a card
+    it raises): with `wire_voxel` the host voxel grid first (the cloud is
+    then marked `pre_voxelized`, at `downsample_capacity`), with
     `quantized_upload` the int16 upload; else the raw f32 cloud at
     `capacity` (default `raw_capacity`)."""
+    device = check_device(device, "wire_cloud")
     pts = np.asarray(pts, np.float32)
     if cfg.wire_voxel > 0.0:
         if cfg.quantized_upload:
@@ -56,16 +58,17 @@ def wire_cloud(cfg: PipelineConfig, pts: np.ndarray,
 
 
 def wire_batch(cfg: PipelineConfig, pts_list: list,
-               device="cpu") -> list[Cloud]:
+               device="cuda") -> list[Cloud]:
     """The quantized wire format (`wire_voxel` > 0 and `quantized_upload`)
     for a batch of clouds: host voxel grid and int16 quantization per
     cloud into one (B, downsample_capacity, 3) buffer, pinned on a card,
     shipped by one host-to-device copy; each cloud is dequantized on the
-    device from its view of the batch."""
+    device from its view of the batch. On the card unless the caller asks
+    for the CPU; without a card it raises."""
     if not (cfg.wire_voxel > 0.0 and cfg.quantized_upload):
         raise ValueError("wire_batch needs the quantized wire format "
                          "(wire_voxel > 0 and quantized_upload)")
-    dev = torch.device(device)
+    dev = check_device(device, "wire_batch")
     pin = dev.type == "cuda"
     B, cap = len(pts_list), cfg.downsample_capacity
     qs = torch.empty((B, cap, 3), dtype=torch.int16, pin_memory=pin)

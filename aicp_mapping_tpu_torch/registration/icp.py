@@ -14,6 +14,16 @@ The JAX solver is one device `lax.while_loop`. Here the loop is Python
 with early exit: once the checker's history is full, each iteration reads
 one scalar (the convergence flag) back to the host. `T`, `n_iterations`
 and the final-iteration statistics are those of the while_loop.
+
+SPMD (`config.axis_name` and a `mesh` of `parallel.mesh`): with
+`shard_axis_mode="reading"` each rank holds a slice of the reading and
+the whole reference; the trim histograms, the normal equations and the
+inlier statistics are `psum`-reduced, so every rank steps the same
+transform and reads the same convergence flag. With "reference" each rank
+holds a block of the reference and the whole reading; the global nearest
+neighbour is the `pmin` of the blocks' distances, ties to the lowest
+block, whose payload is selected by a `psum`, after which the solve runs
+without collectives (`parallel.sharded_icp`).
 """
 from __future__ import annotations
 
@@ -40,8 +50,9 @@ class ICPConfig:
     `ICPConfig` (see its docstrings for each field's meaning).
 
     `use_pallas` only selects a TPU kernel in JAX and is ignored here: the
-    matcher is chosen by `solver_plan`. `axis_name` (SPMD) is not ported
-    yet and raises."""
+    matcher is chosen by `solver_plan`. `axis_name` names the mesh axis
+    of an SPMD solve and `shard_axis_mode` ("reading" or "reference") the
+    operand sharded along it; `point_to_plane_icp` then takes the mesh."""
 
     max_iterations: int = 20
     min_diff_trans: float = 0.01
@@ -104,12 +115,21 @@ def point_to_plane_icp(reading_points: torch.Tensor,
                        reference_mask: torch.Tensor,
                        init_T: torch.Tensor,
                        trim_ratio,
-                       config: ICPConfig = ICPConfig()) -> ICPResult:
+                       config: ICPConfig = ICPConfig(), *,
+                       mesh=None) -> ICPResult:
     """Trimmed point-to-plane ICP; returns the correction T with
-    aligned = T @ reading. `trim_ratio` is a 0-d tensor (or float)."""
-    if config.axis_name is not None:
-        raise NotImplementedError(
-            "ICPConfig.axis_name: distributed ICP is ROADMAP Q1 #13")
+    aligned = T @ reading. `trim_ratio` is a 0-d tensor (or float).
+
+    With `config.axis_name` every rank of `mesh` calls this with its own
+    shard (module docstring); the plan is each shard's own, and per-point
+    outputs are the shard's rows."""
+    axis = config.axis_name
+    if axis is not None and (mesh is None or config.shard_axis_mode
+                             not in ("reading", "reference")):
+        raise ValueError("ICPConfig.axis_name needs a mesh and a "
+                         "shard_axis_mode of 'reading' or 'reference'")
+    reading_sharded = axis is not None and config.shard_axis_mode == "reading"
+    ref_sharded = axis is not None and config.shard_axis_mode == "reference"
     M, N = reading_points.shape[0], reference_points.shape[0]
     plan = solver_plan(config, M, N, reading_points.device)
 
@@ -123,7 +143,8 @@ def point_to_plane_icp(reading_points: torch.Tensor,
         coarse = point_to_plane_icp(
             reading_points[::d].contiguous(),
             reading_mask[::d].contiguous(), reference_points,
-            reference_normals, reference_mask, init_T, trim_ratio, ccfg)
+            reference_normals, reference_mask, init_T, trim_ratio, ccfg,
+            mesh=mesh)
         fcfg = dataclasses.replace(
             config, coarse_iterations=0,
             max_iterations=max(config.max_iterations
@@ -131,7 +152,8 @@ def point_to_plane_icp(reading_points: torch.Tensor,
             smooth_length=min(config.smooth_length, 2))
         fine = point_to_plane_icp(
             reading_points, reading_mask, reference_points,
-            reference_normals, reference_mask, coarse.T, trim_ratio, fcfg)
+            reference_normals, reference_mask, coarse.T, trim_ratio, fcfg,
+            mesh=mesh)
         return dataclasses.replace(
             fine, n_iterations=fine.n_iterations + coarse.n_iterations)
 
@@ -143,11 +165,19 @@ def point_to_plane_icp(reading_points: torch.Tensor,
     if plan["nn"] == "banded":
         match, work_points, work_mask, inv_q = _banded_matcher(
             config, reading_points, reading_mask, reference_points,
-            ref_normals, reference_mask, init_T)
+            ref_normals, reference_mask, init_T,
+            mesh if ref_sharded else None)
     else:
         match = _full_matcher(reference_points, ref_normals, reference_mask)
         work_points, work_mask = reading_points, reading_mask.contiguous()
         inv_q = None
+    if ref_sharded:
+        match = _global_matcher(match, mesh, axis, 6 if p2plane else 3)
+    red_axis = axis if reading_sharded else None
+
+    def preduce(*xs):
+        """The shards' sums of `xs` in one `psum` (reading mode)."""
+        return xs if red_axis is None else mesh.psum_many(xs, red_axis)
     m_f = work_mask.to(torch.float32)
     degen = config.degeneracy_threshold > 0.0
     mmd2 = (float(np.float32(config.max_match_dist ** 2))
@@ -164,12 +194,14 @@ def point_to_plane_icp(reading_points: torch.Tensor,
             bucket = torch.argmax(torch.abs(n), dim=-1)
             tb = torch.stack([
                 masked_quantile_hist(dist2, matched & (bucket == k),
-                                     trim_ratio) for k in range(3)])
+                                     trim_ratio, axis_name=red_axis,
+                                     mesh=mesh) for k in range(3)])
             if mmd2 is not None:
                 tb = torch.clamp(tb, max=mmd2)
             thresh = tb[bucket]
         else:
-            thresh = masked_quantile_hist(dist2, matched, trim_ratio)
+            thresh = masked_quantile_hist(dist2, matched, trim_ratio,
+                                          axis_name=red_axis, mesh=mesh)
             if mmd2 is not None:
                 thresh = torch.clamp(thresh, max=mmd2)
         valid = (dist2 < _VALID_DIST).to(torch.float32)
@@ -178,10 +210,11 @@ def point_to_plane_icp(reading_points: torch.Tensor,
             # observability from the UNTRIMMED matches, in a basis centred
             # on their centroid and scaled by their RMS radius
             w_u = m_f * valid
-            wsum_u = torch.clamp(w_u.sum(), min=1.0)
-            cen = (p * w_u[:, None]).sum(0) / wsum_u
-            r0 = torch.sqrt(torch.clamp(
-                (w_u * ((p - cen) ** 2).sum(-1)).sum() / wsum_u, min=1e-6))
+            su, sp = preduce(w_u.sum(), (p * w_u[:, None]).sum(0))
+            wsum_u = torch.clamp(su, min=1.0)
+            cen = sp / wsum_u
+            (sr,) = preduce((w_u * ((p - cen) ** 2).sum(-1)).sum())
+            r0 = torch.sqrt(torch.clamp(sr / wsum_u, min=1e-6))
         if p2plane:
             r = (n * (p - q)).sum(-1)
             J = torch.cat([n, torch.linalg.cross(p, n, dim=-1)], dim=-1)
@@ -207,6 +240,15 @@ def point_to_plane_icp(reading_points: torch.Tensor,
                 Ac = torch.einsum("mij,m,mik->jk", Jcp, w, Jcp)
                 bc = -torch.einsum("mij,m,mi->j", Jcp, w, rv)
                 Ac_u = torch.einsum("mij,m,mik->jk", Jcp, w_u, Jcp)
+        # the shards' normal equations and the inlier sums, in one psum
+        # (reading mode): every rank then solves the same system
+        stats = None
+        if red_axis is not None:
+            stats = torch.stack([w.sum(), (w * r * r).sum()])
+            if degen:
+                A, b, Ac, bc, Ac_u, stats = preduce(A, b, Ac, bc, Ac_u, stats)
+            else:
+                A, b, stats = preduce(A, b, stats)
         if degen:
             # solution remapping in the scaled centred basis: the untrimmed
             # support picks the observable subspace, the trimmed system is
@@ -230,7 +272,7 @@ def point_to_plane_icp(reading_points: torch.Tensor,
         else:
             lam = config.damping * torch.trace(A) / 6.0 + 1e-12
             delta = torch.linalg.solve(A + lam * eye6, b)
-        return delta, A, dist2, w, r
+        return delta, A, dist2, w, r, stats
 
     S = config.smooth_length
     T = init_T.to(torch.float32)
@@ -240,9 +282,10 @@ def point_to_plane_icp(reading_points: torch.Tensor,
     dist2 = torch.full((M,), _BIG, dtype=torch.float32, device=dev)
     w = torch.zeros((M,), dtype=torch.float32, device=dev)
     r = torch.zeros((M,), dtype=torch.float32, device=dev)
+    stats = torch.zeros((2,), dtype=torch.float32, device=dev)
     it = 0
     while it < config.max_iterations:
-        delta, A, dist2, w, r = iteration(T)
+        delta, A, dist2, w, r, stats = iteration(T)
         T = se3.se3_exp(delta) @ T
         hist_t = torch.cat([torch.linalg.norm(delta[:3])[None], hist_t[:-1]])
         hist_r = torch.cat([torch.linalg.norm(delta[3:])[None], hist_r[:-1]])
@@ -253,8 +296,12 @@ def point_to_plane_icp(reading_points: torch.Tensor,
                             & (hist_r.mean() < config.min_diff_rot)):
             break
 
-    wsum = torch.clamp(w.sum(), min=1.0)
-    inlier_rms = torch.sqrt((w * r * r).sum() / wsum)
+    if red_axis is not None:
+        # the final iteration's global inlier sums, reduced in its psum
+        inlier_rms = torch.sqrt(stats[1] / torch.clamp(stats[0], min=1.0))
+    else:
+        wsum = torch.clamp(w.sum(), min=1.0)
+        inlier_rms = torch.sqrt((w * r * r).sum() / wsum)
     if inv_q is not None:
         # per-point outputs back to the caller's reading order
         dist2, w = dist2[inv_q], w[inv_q]
@@ -284,17 +331,42 @@ def banded_band(M: int, N: int, nn_band: int = 0) -> int:
     return min(band, N // 1024)
 
 
+def _global_matcher(match, mesh, axis: str, k: int):
+    """`match` over a reference sharded in blocks along `axis` of `mesh`
+    (JAX icp.py:392-404): the global nearest neighbour is the least of the
+    blocks' distances (`pmin`), exact ties go to the lowest block (a `pmin`
+    of the block index), and the winner's first `k` payload columns reach
+    every rank by a `psum` over zeros elsewhere, summed as their bits so
+    that the payload arrives exactly. Returns replicated (dist2, payload)."""
+    me = mesh.index(axis)
+
+    def reduced(p, mask):
+        dist2, pout = match(p, mask)
+        d_min = mesh.pmin(dist2, axis)
+        sel = torch.where(dist2 <= d_min, me, 2 ** 30).to(torch.int32)
+        mine = sel == mesh.pmin(sel, axis)
+        bits = torch.where(mine[:, None], pout[:, :k].contiguous().view(
+            torch.int32), 0)
+        return d_min, mesh.psum(bits, axis).view(torch.float32)
+
+    return reduced
+
+
 def _banded_matcher(config, reading_points, reading_mask, ref_points,
-                    ref_normals, ref_mask, init_T):
+                    ref_normals, ref_mask, init_T, mesh=None):
     """The Morton-banded matcher (JAX icp.py:297-372): the reference sorted
     once with its payload; the reading sorted once by its codes under
     `init_T` and solved in that order (every loop reduction is
     order-free); each iteration re-brackets the windows from the live
     codes. Returns (match, work_points, work_mask, inv_q) with inv_q the
-    permutation back to the caller's order."""
+    permutation back to the caller's order. With `mesh` (a reference
+    sharded in blocks) the Morton origin is the blocks' `pmin`, so every
+    rank sorts the reading alike and its rows align across blocks."""
     M, N = reading_points.shape[0], ref_points.shape[0]
     band = banded_band(M, N, config.nn_band)
     origin = torch.where(ref_mask[:, None], ref_points, 1e30).amin(0)
+    if mesh is not None:
+        origin = mesh.pmin(origin, config.axis_name)
     cell = config.nn_cell_size
     rs, rpen, rcodes_s, pay_s = banded_prepare_payload(
         ref_points, ref_mask, ref_normals, origin, cell)

@@ -47,7 +47,22 @@ launch counts set to 0 just before it and read just after:
   against the same pipeline finalizing inline and against a synchronous
   App (ms/frame) up to the first rejection, 6 wire frames against the CPU
   App with the dequantized clouds equal on both devices, and a
-  `StreamingDriver` drive.
+  `StreamingDriver` drive;
+- distribution (`run_distributed`): two ranks (processes started by
+  `parallel.launch`) share the card over gloo, collectives staged through
+  pinned host memory: (a) the reading-sharded ICP at the bench shape
+  (8,192 x 8,192, coarse-to-fine, K1 on each rank) against the card's
+  single-device solve; (b) the map-sharded ICP, 8,192 x 16,384 in two
+  exhaustive blocks (K1) against the single-device solve, and 8,192 x the
+  262,144-point map in two blocks (K5) recovering a known perturbation;
+  (c) `ShardedMapLocalizer` over the two ranks (K2 normals of 131,072-row
+  blocks) on the localization scene's 4 scans at the 65,536 crop; (d) the
+  SLAM back-end at seed 0 from fixed keyframes, its PGO edge-sharded and
+  its BA observation-sharded, each solve against the unsharded one on the
+  card; (e) one rank on an NCCL mesh running (a). The ranks' launch counts
+  of the sharded work are added to the phase's: each rank's inputs and
+  references run inside `not_path` and are taken out, and the seed-0
+  front-end that (d) starts from runs before the phase's counts start.
 
 Phase 3 also holds K1 and K5 (both modes) to their twins on a scene of
 exact ties across the slices their split scans cut the window into, and
@@ -69,6 +84,7 @@ Every phase asserts; the last line of standard output is
 `{"ok": true, "device": {...}}` only when all of them passed. Imports
 nothing of JAX. Exits non-zero without a result when CUDA is unavailable.
 """
+import contextlib
 import dataclasses
 import functools
 import importlib
@@ -1357,6 +1373,7 @@ def run_localization(torch, scene, out_capacity: int) -> None:
         f"{len(gpu_ms) - 1}; min {min(gpu_ms[1:]):.2f}, max "
         f"{max(gpu_ms[1:]):.2f}; frame 0 {gpu_ms[0]:.2f}); CPU localizer "
         f"{np.mean(cpu_s):.2f} s/frame")
+    return {"load_ms": load_ms, "frame_ms": float(np.mean(gpu_ms[1:]))}
 
 
 def run_golden_maps(torch) -> None:
@@ -1645,20 +1662,420 @@ def run_slam(torch) -> None:
         check_slam_accuracy(res)
 
 
-def drive(name: str, fn, expect) -> dict:
+# ---------------------------------------------------------------------------
+# Distribution: ranks on the card (processes started by parallel.launch)
+# ---------------------------------------------------------------------------
+
+DIST_RANKS = 2
+DIST_TIMEOUT_S = 600.0
+DIST_KERNELS = ("nn_payload", "banded_nn_payload_stream", "banded_moments")
+DIST_PERT = ([0.01, -0.015, 0.03], [0.08, -0.05, 0.04])
+
+
+@contextlib.contextmanager
+def not_path(skip: dict):
+    """Kernel launches made inside (a rank's inputs, its single-device and
+    unsharded references) are not the distributed path's: they are added
+    to `skip`, which `run_distributed` takes out of the rank's counts."""
+    from aicp_mapping_tpu_torch import _kernels
+
+    before = _kernels.launch_counts()
+    try:
+        yield
+    finally:
+        after = _kernels.launch_counts()
+        for k in after:
+            skip[k] = skip.get(k, 0) + after[k] - before[k]
+
+
+def dist_scene(torch, n: int, seed: int, dev):
+    """A 12 m room of `n` points with kNN normals, and the reading: the room
+    moved by DIST_PERT, with the perturbation."""
+    from aicp_mapping_tpu_torch.cloud import Cloud
+    from aicp_mapping_tpu_torch.geometry import se3
+    from aicp_mapping_tpu_torch.ops.normals import estimate_normals
+    from aicp_mapping_tpu_torch.tools.synthetic import room_cloud
+
+    ref = Cloud.from_numpy(room_cloud(n=n, size=12.0, seed=seed,
+                                      noise=0.005), n, dev)
+    normals, _, _ = estimate_normals(ref.points, ref.mask, k=12)
+    T = se3.make_transform(se3.so3_exp(torch.tensor(DIST_PERT[0])),
+                           torch.tensor(DIST_PERT[1])).to(dev)
+    return ref, normals, ref.transform(T), T
+
+
+def recovered(T, T_pert) -> tuple:
+    """(m, deg) left of the perturbation after the correction T."""
+    err = (T @ T_pert).cpu().numpy().astype(np.float64)
+    c = np.clip((np.trace(err[:3, :3]) - 1) / 2, -1.0, 1.0)
+    return float(np.linalg.norm(err[:3, 3])), float(np.degrees(np.arccos(c)))
+
+
+def sync(torch) -> None:
+    """Wait for the card (the phase rehearses on CPU ranks too)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def host_ms(torch, fn, reps: int = 5) -> float:
+    """Mean wall ms of `fn` after a warm-up, the card synchronised: a
+    sharded solve waits on host collectives, so its time is the wall's."""
+    fn()
+    sync(torch)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync(torch)
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def dist_reading(torch, mesh, tag: str, skip: dict) -> dict:
+    """(a): the reading-sharded ICP at the bench shape against the card's
+    single-device solve, T within 1e-4; the collectives of one solve from
+    the mesh's counters."""
+    from aicp_mapping_tpu_torch.eval.multichip import collective_stats
+    from aicp_mapping_tpu_torch.parallel import sharded_point_to_plane_icp
+    from aicp_mapping_tpu_torch.registration.icp import (point_to_plane_icp,
+                                                         solver_plan)
+
+    cfg = cells().bench_config().icp
+    dev = mesh.device
+    with not_path(skip):
+        ref, normals, reading, T_pert = dist_scene(torch, 8192, 3, dev)
+    args = (reading.points, reading.mask, ref.points, normals, ref.mask,
+            torch.eye(4, device=dev), torch.tensor(0.7, device=dev))
+    D = mesh.shape["points"]
+    matcher = "kernel" if dev.type == "cuda" else "plain"
+    assert solver_plan(cfg, 8192 // D, 8192, dev) == {
+        "nn": matcher, "coarse": True}
+
+    def sharded():
+        return sharded_point_to_plane_icp(mesh, *args, cfg)
+
+    mesh.reset_counts()
+    res = sharded()
+    stats = collective_stats(mesh.counts(), res.n_iterations)
+    out = dict(ms=host_ms(torch, sharded), iterations=res.n_iterations,
+               stats=stats, recovered=recovered(res.T, T_pert))
+    if mesh.rank == 0:
+        with not_path(skip):
+            one = point_to_plane_icp(*args, cfg)
+            out["single_ms"] = host_ms(torch, lambda: point_to_plane_icp(
+                *args, cfg))
+        out["dT"] = float((res.T - one.T).abs().max())
+        out["single_iterations"] = one.n_iterations
+        log(f"distributed ({tag}) (a) reading-sharded ICP 8,192 x 8,192 "
+            f"over {D} rank(s), backend {mesh.backend}: {out['ms']:.2f} ms "
+            f"per solve ({res.n_iterations} iterations; single-device "
+            f"{out['single_ms']:.2f} ms, {one.n_iterations}); max |T - "
+            f"T_single| {out['dT']:.3g}; collectives {stats['ops']}, "
+            f"{stats['bytes_per_iteration']:.0f} B per iteration, "
+            f"{stats['bytes_per_solve']} B per solve")
+        assert out["dT"] <= 1e-4, out
+        assert stats["bytes_per_iteration"] == 1208, stats
+    return out
+
+
+def dist_map(torch, mesh, map_np, skip: dict) -> dict:
+    """(b): the map-sharded ICP, exhaustive blocks against the card's
+    single-device solve, then banded blocks of the localization map."""
+    from aicp_mapping_tpu_torch.cloud import Cloud
+    from aicp_mapping_tpu_torch.eval.multichip import collective_stats
+    from aicp_mapping_tpu_torch.geometry import se3
+    from aicp_mapping_tpu_torch.ops.normals import radius_normals
+    from aicp_mapping_tpu_torch.parallel import (
+        map_sharded_point_to_plane_icp, morton_argsort_np)
+    from aicp_mapping_tpu_torch.registration.icp import (point_to_plane_icp,
+                                                         solver_plan)
+
+    cfg = cells().bench_config().icp
+    dev = mesh.device
+    eye, ratio = torch.eye(4, device=dev), torch.tensor(0.7, device=dev)
+    with not_path(skip):
+        ref, normals, moved, T_pert = dist_scene(torch, 16384, 9, dev)
+    rp, rm = moved.points[::2].contiguous(), moved.mask[::2].contiguous()
+    args = (rp, rm, ref.points, normals, ref.mask, eye, ratio)
+    assert solver_plan(cfg, 8192, 8192, dev)["nn"] == (
+        "kernel" if dev.type == "cuda" else "plain")
+    mesh.reset_counts()
+    res = map_sharded_point_to_plane_icp(mesh, *args, cfg)
+    stats = collective_stats(mesh.counts(), res.n_iterations)
+    out = dict(ms=host_ms(torch, lambda: map_sharded_point_to_plane_icp(
+        mesh, *args, cfg)), stats=stats)
+    # the localization map, Morton-ordered as the localizer holds it, its
+    # normals by K2; the reading 8,192 of its points, moved
+    pts = map_np[morton_argsort_np(map_np)]
+    cap = -(-len(pts) // 1024) * 1024
+    big = Cloud.from_numpy(pts, cap, dev)
+    with not_path(skip):
+        big_n, _, _ = radius_normals(big.points, big.mask, 0.4)
+    step = cap // 8192
+    T2 = se3.make_transform(se3.so3_exp(torch.tensor([0.0, 0.0, 0.02])),
+                            torch.tensor([0.1, -0.06, 0.02])).to(dev)
+    q = se3.transform_points(T2, big.points[::step][:8192].contiguous())
+    qm = big.mask[::step][:8192].contiguous()
+    assert solver_plan(cfg, 8192, cap // mesh.shape["points"], dev)[
+        "nn"] == "banded"
+    bargs = (q, qm, big.points, big_n, big.mask, eye, ratio)
+    mesh.reset_counts()
+    bres = map_sharded_point_to_plane_icp(mesh, *bargs, cfg)
+    bstats = collective_stats(mesh.counts(), bres.n_iterations)
+    out.update(banded_ms=host_ms(torch, lambda: map_sharded_point_to_plane_icp(
+        mesh, *bargs, cfg), reps=3), banded_stats=bstats,
+        banded_recovered=recovered(bres.T, T2))
+    if mesh.rank == 0:
+        with not_path(skip):
+            one = point_to_plane_icp(*args, cfg)
+        dd = float((res.match_dist2 - one.match_dist2).abs().max())
+        dT = float((res.T - one.T).abs().max())
+        bit = bool(torch.equal(res.match_dist2, one.match_dist2)
+                   and torch.equal(res.T, one.T))
+        log(f"distributed (b) map-sharded ICP 8,192 x 16,384 in 2 exhaustive "
+            f"blocks (K1): {out['ms']:.2f} ms per solve, max |d2 - "
+            f"d2_single| {dd:.3g}, max |T - T_single| {dT:.3g}, bit for "
+            f"bit: {bit}; {stats['bytes_per_iteration']:.0f} B per "
+            f"iteration ({stats['bytes_per_iteration'] / 8192:.1f} per "
+            f"reading point)")
+        t_err, r_err = out["banded_recovered"]
+        log(f"distributed (b) map-sharded ICP 8,192 x {cap:,} in 2 banded "
+            f"blocks of {cap // 2:,} (K5): {out['banded_ms']:.2f} ms per "
+            f"solve, {bres.n_iterations} iterations, left of the "
+            f"perturbation {t_err * 100:.3f} cm / {r_err:.4f} deg; "
+            f"{bstats['bytes_per_iteration']:.0f} B per iteration")
+        assert dd <= 1e-5 and dT <= 1e-4, (dd, dT)
+        assert t_err < 0.02 and r_err < 0.5, (t_err, r_err)
+        out.update(dd=dd, dT=dT, bit=bit)
+    return out
+
+
+def dist_localizer(torch, mesh, scene) -> dict:
+    """(c): `ShardedMapLocalizer` over the ranks at the 65,536 crop, each
+    pose within GT_TOL of the ground truth."""
+    from aicp_mapping_tpu_torch.parallel import ShardedMapLocalizer
+
+    map_np, items, gts = scene
+    cfg = cells().bench_config()
+    sync(torch)
+    t0 = time.perf_counter()
+    loc = ShardedMapLocalizer(map_np, cfg.icp, mesh=mesh,
+                              pipeline_config=cfg,
+                              crop_radius=cells().CROP_RADIUS,
+                              out_capacity=65536)
+    sync(torch)
+    out = {"load_ms": (time.perf_counter() - t0) * 1e3,
+           "block": loc.map_points.shape[0]}
+    if mesh.rank != 0:
+        loc.serve()
+        return out
+    frame_ms = []
+    for i, ((_, pts, odom), gt) in enumerate(zip(items, gts)):
+        local = cells().sensor_frame(pts, odom)
+        sync(torch)
+        t0 = time.perf_counter()
+        pose = loc.localize(local, odom, capacity=cfg.raw_capacity)
+        sync(torch)
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+        err = float(np.linalg.norm(pose[:3, 3] - gt[:3, 3]))
+        res = loc.last_result
+        log(f"distributed (c) localize frame {i}: {frame_ms[-1]:.1f} ms, "
+            f"iters {res.n_iterations}, |t - gt| {err:.4f} m")
+        assert res.registered and res.accepted, res
+        assert err < GT_TOL, (i, err)
+    pose = loc.total_correction @ np.asarray(items[-1][2], np.float32)
+    out["crop_ms"] = host_ms(torch, lambda: loc.provide_reference(pose))
+    loc.stop_serving()
+    out["frame_ms"] = float(np.mean(frame_ms[1:]))
+    return out
+
+
+def dist_backend(torch, mesh, snapshot: str, skip: dict) -> dict:
+    """(d): the SLAM back-end from the fixed seed-0 keyframes with its PGO
+    edge-sharded and its BA observation-sharded; rank 0 then solves each
+    of those graphs and problems unsharded on the card (PGO within rtol
+    1e-3 / atol 1e-4, BA within rtol 1e-4 / atol 1e-5), and runs the
+    unsharded back-end for its time and ATE."""
+    from aicp_mapping_tpu_torch.eval import slam_accuracy as sa
+    from aicp_mapping_tpu_torch.pipeline import mapper
+    ba = importlib.import_module("aicp_mapping_tpu_torch.parallel.ba")
+
+    if mesh.rank != 0:
+        mapper.serve_backend(mesh, "graph")
+        return {}
+    pgo_calls, ba_calls = [], []
+
+    def record(fn, sink):
+        def run(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            sink.append((args, kwargs, out))
+            return out
+        return run
+
+    saved = [(mapper, "optimize_pose_graph_sharded", pgo_calls),
+             (ba, "optimize_plane_ba_sharded", ba_calls)]
+    originals = [getattr(m, n) for m, n, _ in saved]
+    for m, n, sink in saved:
+        setattr(m, n, record(getattr(m, n), sink))
+    try:
+        app, gt, meta = sa.load_frontend_snapshot(snapshot, device=mesh.device)
+        sync(torch)
+        t0 = time.perf_counter()
+        sharded = sa.run_backend(app, gt, meta, mesh=mesh)
+        sync(torch)
+        backend_s = time.perf_counter() - t0
+    finally:
+        for (m, n, _), fn in zip(saved, originals):
+            setattr(m, n, fn)
+    mesh.stop_serving()
+    with not_path(skip):
+        dpgo, dba, plain, plain_s = backend_references(
+            torch, mesh, snapshot, pgo_calls, ba_calls)
+    log(f"distributed (d) SLAM back-end at seed 0 from fixed keyframes, PGO "
+        f"and BA sharded over {mesh.shape['graph']} ranks: {backend_s:.2f} s "
+        f"(unsharded {plain_s:.2f} s); {len(pgo_calls)} PGO solves, max "
+        f"|pose - unsharded| {max(dpgo):.3g}; {len(ba_calls)} BA solves, "
+        f"{max(dba):.3g}; ATE post-PGO {sharded['ate_post_pgo_m']} "
+        f"(unsharded {plain['ate_post_pgo_m']}), post-BA "
+        f"{sharded.get('ate_post_ba_m')} ({plain.get('ate_post_ba_m')})")
+    return {"backend_s": backend_s, "plain_s": plain_s, "pgo": dpgo,
+            "ba": dba}
+
+
+def backend_references(torch, mesh, snapshot, pgo_calls, ba_calls):
+    """(d)'s references on rank 0: each recorded sharded PGO and BA solve
+    against its unsharded solve, then the unsharded back-end (its time)."""
+    from aicp_mapping_tpu_torch.eval import slam_accuracy as sa
+    ba = importlib.import_module("aicp_mapping_tpu_torch.parallel.ba")
+    pg = importlib.import_module("aicp_mapping_tpu_torch.parallel.posegraph")
+
+    dpgo = []
+    for (graph, _), kw, (opt, _) in pgo_calls:
+        kw = {k: v for k, v in kw.items() if k != "axis"}
+        want, _ = pg.optimize_pose_graph(graph, **kw)
+        dpgo.append(float((opt - want).abs().max()))
+        torch.testing.assert_close(opt, want, rtol=1e-3, atol=1e-4)
+    dba = []
+    for (prob, _), kw, (opt, lms, _) in ba_calls:
+        kw = {k: v for k, v in kw.items() if k != "axis"}
+        want, wlms, _ = ba.optimize_plane_ba(prob, **kw)
+        dba.append(float((opt - want).abs().max()))
+        torch.testing.assert_close(opt, want, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(lms, wlms, rtol=1e-4, atol=1e-5)
+    assert pgo_calls and ba_calls, (len(pgo_calls), len(ba_calls))
+    app, gt, meta = sa.load_frontend_snapshot(snapshot, device=mesh.device)
+    sync(torch)
+    t0 = time.perf_counter()
+    plain = sa.run_backend(app, gt, meta)
+    sync(torch)
+    return dpgo, dba, plain, time.perf_counter() - t0
+
+
+def dist_rank(scene, snapshot: str, device: str = "cuda") -> dict:
+    """One of the DIST_RANKS ranks of the distributed phase, (a)-(d); its
+    "skip" holds the launches that were not the sharded path's."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from aicp_mapping_tpu_torch.parallel import make_mesh
+
+    points = make_mesh(DIST_RANKS, "points", device=device)
+    graph = make_mesh(DIST_RANKS, "graph", device=device)
+    skip: dict = {}
+    return {"backend": points.backend,
+            "a": dist_reading(torch, points, "gloo", skip),
+            "b": dist_map(torch, points, scene[0], skip),
+            "c": dist_localizer(torch, points, scene),
+            "d": dist_backend(torch, graph, snapshot, skip),
+            "skip": skip}
+
+
+def nccl_rank() -> dict:
+    """(e): one rank on an NCCL mesh running (a)."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    from aicp_mapping_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, "points")
+    assert mesh.backend == "nccl", mesh.backend
+    skip: dict = {}
+    return dict(dist_reading(torch, mesh, "nccl", skip), skip=skip)
+
+
+def frontend_snapshot(directory: str) -> str:
+    """The seed-0 SLAM front-end's keyframes, saved for (d)'s ranks: made
+    before the distributed path's counts start, as its input."""
+    from aicp_mapping_tpu_torch.eval import slam_accuracy as sa
+
+    snapshot = os.path.join(directory, "slam_seed0.npz")
+    app, gt, meta = sa.run_frontend(seed=0, device="cuda")
+    sa.save_frontend_snapshot(app, gt, meta, snapshot)
+    return snapshot
+
+
+def run_distributed(torch, scene, one_rank: dict, snapshot: str) -> dict:
+    """The distributed phase; returns the launch counts of its ranks'
+    sharded work (each rank's inputs and references taken out)."""
+    from aicp_mapping_tpu_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    ranks = launch(dist_rank, DIST_RANKS, scene, snapshot,
+                   device="cuda", timeout_s=DIST_TIMEOUT_S)
+    wall_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nccl = launch(nccl_rank, 1, device="cuda", timeout_s=300.0)
+    nccl_s = time.perf_counter() - t0
+    r0 = ranks[0].value
+    assert r0["backend"] == "gloo", r0["backend"]
+    a, b, c, d = r0["a"], r0["b"], r0["c"], r0["d"]
+    per_rank = [{k: r.launches[k] - r.value["skip"].get(k, 0)
+                 for k in r.launches} for r in ranks + nccl]
+    launches = {k: sum(r[k] for r in per_rank) for k in per_rank[0]}
+    per_rank, nccl_launches = per_rank[:-1], per_rank[-1]
+    log(f"distributed phase on the card ({gpu_line()}): {DIST_RANKS} ranks "
+        f"share it over gloo ({wall_s:.1f} s, rank start-up included), 1 "
+        f"rank on NCCL ({nccl_s:.1f} s); sharded-path launches per rank "
+        f"{per_rank}, NCCL rank {nccl_launches}")
+    log(f"distributed (a): {a['ms']:.2f} ms per solve on 2 ranks (gloo), "
+        f"{nccl[0].value['ms']:.2f} on 1 rank (NCCL), single-device "
+        f"{a['single_ms']:.2f}; {a['stats']['ops']} collectives per solve "
+        f"of {a['iterations']} iterations, "
+        f"{a['stats']['bytes_per_iteration']:.0f} B per iteration; NCCL "
+        f"rank max |T - T_single| {nccl[0].value['dT']:.3g}")
+    log(f"distributed (c) localizer: load {c['load_ms']:.1f} ms (blocks of "
+        f"{c['block']:,} rows, K2 normals per rank), crop {c['crop_ms']:.2f} "
+        f"ms, {c['frame_ms']:.2f} ms/frame over 2 ranks; 1-rank localizer "
+        f"load {one_rank['load_ms']:.1f} ms, {one_rank['frame_ms']:.2f} "
+        f"ms/frame (two ranks on one card share its SMs: these times "
+        f"record the path, not scaling)")
+    log(f"distributed (d) back-end: {d['backend_s']:.2f} s sharded, "
+        f"{d['plain_s']:.2f} s unsharded")
+    # every kernel of the path ran on the ranks' card
+    assert all(sum(r[k] for r in per_rank) > 0 for k in DIST_KERNELS), \
+        per_rank
+    return launches
+
+
+def drive(name: str, fn, expect, ranks: bool = False) -> dict:
     """Run one main path with the launch counts set to 0 just before it;
-    returns its counts and fails if a kernel of the path never launched."""
+    returns its counts and fails if a kernel of the path never launched.
+    With `ranks`, `fn` returns the launch counts of the ranks it started
+    (each a process of its own, whose counts began at 0), and they are
+    added to this process's."""
     from aicp_mapping_tpu_torch import _kernels
 
     _kernels.reset_launch_counts()
-    fn()
+    extra = fn()
     counts = _kernels.launch_counts()
+    if ranks:
+        counts = {k: counts[k] + extra[k] for k in counts}
     log(f"launches on the {name} path: {counts}")
     assert all(counts[k] > 0 for k in expect), (name, counts)
     return counts
 
 
 def main() -> int:
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1689,14 +2106,14 @@ def main() -> int:
     check_tie_scenes(torch)
 
     # 4-13. the main paths, each with its own launch counts
-    bench_ms, stream = {}, {}
+    bench_ms, stream, one_rank = {}, {}, {}
     paths = [
         drive("frame", lambda: bench_ms.update(
             off=run_bench_slice(torch)), ("nn_payload", "banded_moments")),
         drive("golden", lambda: run_golden(torch),
               ("nn_payload", "radius_moments")),
         drive("localization", lambda: (
-            run_localization(torch, scene, 65536),
+            one_rank.update(run_localization(torch, scene, 65536)),
             run_localization(torch, scene, 131072)),
             ("banded_nn_payload_stream", "banded_moments")),
         drive("golden map modes", lambda: run_golden_maps(torch),
@@ -1715,6 +2132,11 @@ def main() -> int:
         drive("stream", lambda: stream.update(run_stream(torch)),
               ("nn_payload", "banded_moments")),
     ]
+    dist_dir = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
+    snapshot = frontend_snapshot(dist_dir.name)   # an input, not counted
+    paths.append(drive("distributed", lambda: run_distributed(
+        torch, scene, one_rank, snapshot), DIST_KERNELS, ranks=True))
+    dist_dir.cleanup()
     log(f"bench operating point on the card: {bench_ms['off']:.2f} ms/frame"
         f" without failure prediction, {bench_ms['on']:.2f} with it")
     log(f"stream cell on the card ({gpu_line()}): "

@@ -172,10 +172,24 @@ def test_pose_graph_helpers_match_jax():
     _close(se3.adjoint(_t(T)), jax.vmap(jse3.adjoint)(jnp.asarray(T)), 1e-6)
     _close(se3.compose(_t(T[0]), _t(T[1])),
            jse3.compose(jnp.asarray(T[0]), jnp.asarray(T[1])), 1e-6)
-    with pytest.raises(NotImplementedError, match="Q1 #13"):
-        pg.optimize_pose_graph_sharded(None, None)
-    with pytest.raises(NotImplementedError, match="Q1 #13"):
-        ba.optimize_plane_ba_sharded(None, None)
+    # the sharded solvers on a mesh of one rank are the single-device
+    # solves, bit for bit (their collectives are the identity there; the
+    # multi-rank cases are tests/test_torch_sharded_backend.py)
+    from aicp_mapping_tpu_torch.parallel import make_mesh
+
+    graph = convert.pose_graph_from_numpy(**_loop_graph(), device="cpu")
+    got = pg.optimize_pose_graph_sharded(
+        graph, make_mesh(1, "edges", device="cpu"), gn_iters=2)
+    want = pg.optimize_pose_graph(graph, gn_iters=2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    prob, _, _ = _random_problem(seed=3)
+    p = convert.plane_ba_from_numpy(**_ba_numpy(prob), device="cpu")
+    got = ba.optimize_plane_ba_sharded(
+        p, make_mesh(1, "graph", device="cpu"), gn_iters=2)
+    want = ba.optimize_plane_ba(p, gn_iters=2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

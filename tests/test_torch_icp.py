@@ -113,7 +113,8 @@ def test_solver_plan_and_unported_branches():
                            "cpu")["nn"] == "banded"
     pts = torch.zeros((512, 3))
     m = torch.ones(512, dtype=torch.bool)
-    with pytest.raises(NotImplementedError):
+    # an SPMD solve needs its mesh (tests/test_torch_sharded_icp.py)
+    with pytest.raises(ValueError, match="mesh"):
         icp.point_to_plane_icp(pts, m, pts, pts, m, torch.eye(4), 0.5,
                                icp.ICPConfig(axis_name="x"))
 

@@ -86,8 +86,8 @@ def test_accumulate_matches_jax(recorded, capsys, tmp_path, extra):
 
 def test_localize_matches_jax(recorded, capsys, tmp_path):
     """`localize --mesh-devices 1` against JAX's on a one-device mesh: the
-    same frames and map, poses within the golden tolerance; a sharded map
-    raises."""
+    same frames and map, poses within the golden tolerance; and with the
+    map sharded over two ranks."""
     argv = ["localize", str(recorded / "seq"), "--map",
             str(recorded / "map.pcd")]
     want = _run(jcli.main, argv + ["--output-poses",
@@ -100,5 +100,12 @@ def test_localize_matches_jax(recorded, capsys, tmp_path):
     np.testing.assert_allclose(got["final_pose_t"], want["final_pose_t"],
                                atol=TOLERANCES["corrected_t"])
     _poses_agree(tmp_path / "got.txt", tmp_path / "want.txt")
-    with pytest.raises(NotImplementedError, match="Q1 #13"):
-        cli.main(argv + ["--device", "cpu", "--mesh-devices", "2"])
+    # the map in two Morton blocks on two gloo ranks (as
+    # tests/test_tools.py:365): rank 0 localizes, the summary carries the
+    # mesh, the poses stay within the golden tolerance of JAX's
+    got2 = _run(cli.main, argv + ["--device", "cpu", "--mesh-devices", "2", "--output-poses",
+                                  str(tmp_path / "got2.txt")], capsys)
+    assert got2["mesh_devices"] == 2 and got2["backend"] == "gloo"
+    for key in ("frames", "map_points"):
+        assert got2[key] == want[key], key
+    _poses_agree(tmp_path / "got2.txt", tmp_path / "want.txt")

@@ -212,8 +212,16 @@ def test_entry_points_need_a_card_or_cpu(jax_snapshot):
     with pytest.raises(NotImplementedError, match="urban"):
         slam_accuracy.scenario_config(failure_prediction_mode=True)
     app, _, _ = slam_accuracy.load_frontend_snapshot(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="Q1 #13"):
-        mapper.PoseGraphMapper(app, mesh=object())
+    # a mapper over a mesh of one rank solves the PGO as the mapper
+    # without one (the two-rank back-end: tests/test_torch_slam_cli.py)
+    from aicp_mapping_tpu_torch.parallel import make_mesh
+
+    plain = mapper.PoseGraphMapper(app)
+    meshed = mapper.PoseGraphMapper(app, mesh=make_mesh(1, "graph",
+                                                        device="cpu"))
+    graph = plain.build_graph(plain.keyframes())
+    assert torch.equal(meshed._solve_pgo(graph, 2)[0],
+                       plain._solve_pgo(graph, 2)[0])
     assert os.path.exists(path)
 
 

@@ -3,6 +3,7 @@ the region-growing prefilter (CPU). The hough slice, the back-end replay
 and a recorded sequence replayed from disk: tests/test_torch_slam.py."""
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -42,7 +43,8 @@ def test_slam_cli_matches_jax(capsys, tmp_path):
     """`slam --synthetic 8 --device cpu` against JAX's `slam --synthetic
     8` (closures between keyframes one apart, at 10 % overlap): the same
     frames, keyframes and closure count, ATE before and after
-    the back-end within 2 cm; the map and the KITTI poses are written."""
+    the back-end within 2 cm; the map and the KITTI poses are written;
+    with `--mesh-devices 2` the same summary and keyframe poses."""
     argv = ["slam", "--synthetic", "8", "--min-keyframe-gap", "1",
             "--min-loop-overlap", "10"]
     want = _run(jcli.main, argv, capsys)
@@ -56,8 +58,16 @@ def test_slam_cli_matches_jax(capsys, tmp_path):
     for k in ("ate_pre_m", "ate_post_m"):
         assert abs(got[k] - want[k]) <= TOL_ATE, (k, got[k], want[k])
     assert len(jposes.read_kitti_poses(out_poses)) == got["keyframes"]
-    with pytest.raises(NotImplementedError, match="Q1 #13"):
-        cli.main(argv + ["--device", "cpu", "--mesh-devices", "2"])
+    # the back-end edge-sharded over two gloo ranks: rank 0 runs the
+    # command, the summary carries the mesh; the same keyframe poses
+    meshed = str(tmp_path / "kf2.txt")
+    got2 = _run(cli.main, argv + ["--device", "cpu", "--mesh-devices", "2",
+                                  "--output-poses", meshed], capsys)
+    assert got2.pop("mesh_devices") == 2 and got2.pop("backend") == "gloo"
+    assert got2 == got
+    np.testing.assert_allclose(jposes.read_kitti_poses(meshed),
+                               jposes.read_kitti_poses(out_poses),
+                               rtol=1e-3, atol=1e-4)
     # the pipelined front-end gives the synchronous summary (JAX's
     # pipelined front-end gives its synchronous one on this nominal loop)
     piped = _run(cli.main, argv + ["--device", "cpu", "--pipelined"], capsys)

@@ -114,7 +114,7 @@ def test_wire_cloud_matches_jax(wire):
     jcfg = small_config(**WIRE[wire])
     cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     pts = _cloud(6000, 8, 8.0)
-    got = sequence.wire_cloud(cfg, pts)
+    got = sequence.wire_cloud(cfg, pts, device="cpu")
     want = jsequence.wire_cloud(jcfg, pts)
     assert got.pre_voxelized == want.pre_voxelized == (
         jcfg.wire_voxel > 0)
@@ -141,16 +141,36 @@ def test_wire_batch_matches_jax():
     cfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     batch = [_cloud(6000, 9 + i, 8.0) for i in range(3)]
     batch.append(np.zeros((0, 3), np.float32))
-    got = sequence.wire_batch(cfg, batch)
+    got = sequence.wire_batch(cfg, batch, device="cpu")
     want = jsequence.wire_batch(jcfg, batch)
     for pts, g, w in zip(batch, got, want):
         assert g.pre_voxelized and w.pre_voxelized
         q, scale, center, _ = native.voxel_downsample_q16(
             pts, jcfg.wire_voxel, jcfg.downsample_capacity)
         _assert_dequantized(g, w, q, scale, center)
-        alone = sequence.wire_cloud(cfg, pts)
+        alone = sequence.wire_cloud(cfg, pts, device="cpu")
         np.testing.assert_array_equal(g.points.numpy(),
                                       alone.points.numpy())
     with pytest.raises(ValueError, match="quantized"):
         sequence.wire_batch(convert.config_from_dict(
-            dataclasses.asdict(small_config(wire_voxel=0.08))), batch)
+            dataclasses.asdict(small_config(wire_voxel=0.08))), batch,
+            device="cpu")
+
+
+def test_wire_helpers_default_to_the_card():
+    """wire_cloud and wire_batch put their clouds on the card unless the
+    caller asks for the CPU; without a card they raise instead of falling
+    back."""
+    import inspect
+
+    for fn in (sequence.wire_cloud, sequence.wire_batch):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the defaults would run there")
+    cfg = convert.config_from_dict(dataclasses.asdict(
+        small_config(wire_voxel=0.08, quantized_upload=True)))
+    pts = _cloud(2000, 3, 8.0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sequence.wire_cloud(cfg, pts)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sequence.wire_batch(cfg, [pts])
