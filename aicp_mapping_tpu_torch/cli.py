@@ -5,6 +5,8 @@
     python -m aicp_mapping_tpu_torch replay DIRECTORY [--config YAML]
     python -m aicp_mapping_tpu_torch accumulate DIRECTORY -o OUT.pcd
     python -m aicp_mapping_tpu_torch localize DIRECTORY --map MAP.pcd
+    python -m aicp_mapping_tpu_torch kitti-run SCAN_DIR -o POSES.txt
+    python -m aicp_mapping_tpu_torch kitti-eval GT.txt RESULT.txt
 
 register   register one reading/reference scan pair: octree overlap, kNN
            normals, FOV overlap, alignability, the risk classifier,
@@ -25,14 +27,25 @@ accumulate concatenate a recorded sequence's scans into one odom-frame
            cloud (range crop, optional voxel grid) and write it as PCD.
 localize   localize a recorded sequence against a prior map, split into
            one Morton block per rank with `--mesh-devices N`.
+overlap    voxel-occupancy overlap of two clouds.
+classifier train (`--train`) and test (`--test`) the alignment-risk
+           classifier on labelled files (`id overlap alignability label`);
+           prints the confusion statistics, AUC and best F1.
+kitti-run  run a KITTI velodyne sequence (`.bin` scans) end to end at the
+           HDL-64 widths, optionally removing the ground first; with
+           `--ground-truth` also the devkit errors and the ATE.
+kitti-eval the KITTI devkit segment errors, ATE and RPE of a trajectory.
+remove-ground   the progressive morphological ground filter of one cloud.
+oxts-to-kitti   a KITTI trajectory from raw OXTS (GPS/IMU) records.
+make-cube  the synthetic cube cloud; concat: concatenate clouds.
 
-The commands that run the App run on the card unless `--device cpu` is
-given. `--mesh-devices N` > 1 starts N ranks (processes) itself — rank r
+The commands that touch the device run on the card unless `--device cpu`
+is given. `--mesh-devices N` > 1 starts N ranks (processes) itself — rank r
 on card r % cards, NCCL when each rank has a card of its own, else gloo —
 or, under `torchrun` with N processes, joins that group; rank 0 runs the
 command, writes its outputs and prints the summary, which carries
-`mesh_devices` and the backend. The JAX package's other subcommands are
-not ported yet (ROADMAP Q1 #14).
+`mesh_devices` and the backend. The JAX package's `draw` and
+`vtk-to-octree` are not ported yet (ROADMAP Q1 #14).
 """
 from __future__ import annotations
 
@@ -344,6 +357,189 @@ def _localize(args, mesh=None):
     }
 
 
+def _pow2_capacity(*counts: int) -> int:
+    return 1 << int(np.ceil(np.log2(max(*counts, 1024))))
+
+
+def _cmd_overlap(args) -> int:
+    from .cloud import Cloud
+    from .io.pcd import read_cloud
+    from .overlap.voxel_overlap import compute_overlap
+    from .pipeline.app import check_device
+
+    dev = check_device(args.device, "overlap")
+    a_np, _ = read_cloud(args.cloud_a)
+    b_np, _ = read_cloud(args.cloud_b)
+    cap = _pow2_capacity(len(a_np), len(b_np))
+    a = Cloud.from_numpy(a_np, capacity=cap, device=dev)
+    b = Cloud.from_numpy(b_np, capacity=cap, device=dev)
+    ov = compute_overlap(a.points, a.mask, b.points, b.mask,
+                         resolution=args.resolution)
+    mn, spread, ra, rb = (float(x) for x in ov.loop_closure_tuple())
+    print(json.dumps({
+        "overlap_percent": float(ov.overlap_percent),
+        "ratio_a": ra, "ratio_b": rb, "spread": spread,
+        "n_common": int(ov.n_common),
+    }, indent=2))
+    return 0
+
+
+def _cmd_classifier(args) -> int:
+    from .classification.classifier import RiskClassifier, load_label_file
+    from .eval.analysis import confusion_stats, f_scores, roc_curve
+
+    clf = RiskClassifier(threshold=args.threshold, device=args.device)
+    if args.train:
+        feats, labels = load_label_file(args.train)
+        clf.train(feats, labels)
+        if args.model:
+            clf.save(args.model)
+    elif args.model:
+        clf.load(args.model)
+    else:
+        print("classifier: need --train or --model", file=sys.stderr)
+        return 2
+
+    if args.test:
+        feats, labels = load_label_file(args.test)
+        probs = clf.test(feats).numpy().reshape(-1)
+        stats = confusion_stats(probs, labels, threshold=args.threshold)
+        auc, _, _ = roc_curve(probs, labels)
+        stats["auc"] = auc
+        best_t, best_f1, _, _ = f_scores(probs, labels)
+        stats["best_f1"] = best_f1
+        stats["best_f1_threshold"] = best_t
+        if args.compare_probs:
+            # another classifier's per-sample probabilities (`id prob` per
+            # row) scored on the same labelled test set
+            ref = np.loadtxt(args.compare_probs)
+            ref = ref[:, 1] if ref.ndim == 2 else ref
+            r_auc, _, _ = roc_curve(ref, labels)
+            _, r_f1, _, _ = f_scores(ref, labels)
+            stats["compare"] = {
+                "auc": r_auc, "best_f1": r_f1,
+                **confusion_stats(ref, labels, threshold=args.threshold),
+            }
+        print(json.dumps(stats, indent=2))
+        if args.save_probs:
+            np.savetxt(args.save_probs, probs, fmt="%.6f")
+        if args.save_eval:
+            with open(args.save_eval, "w") as f:
+                json.dump({"train": args.train, "test": args.test,
+                           "threshold": args.threshold, **stats}, f, indent=1)
+    return 0
+
+
+def _cmd_kitti_run(args) -> int:
+    from .eval.kitti import ate_rmse, average_errors, calc_sequence_errors
+    from .eval.kitti_runner import run_kitti_sequence
+    from .io.poses import read_kitti_poses, write_kitti_poses
+    from .pipeline.config import load_yaml_config
+
+    cfg = load_yaml_config(args.config) if args.config else None
+    traj, results, app = run_kitti_sequence(
+        args.scan_dir, config=cfg, max_frames=args.max_frames,
+        remove_ground=args.remove_ground, frame_stride=args.stride,
+        device=args.device)
+    app.close()
+    write_kitti_poses(args.output_poses, traj)
+    ok = [r for r in results if r is not None]
+    summary = {
+        "frames": len(results),
+        "registered": sum(1 for r in ok if r.registered),
+        "accepted": sum(1 for r in ok if r.accepted),
+        "output": args.output_poses,
+    }
+    if args.ground_truth:
+        gt = read_kitti_poses(args.ground_truth)
+        n = min(len(gt), len(traj))
+        summary.update(average_errors(calc_sequence_errors(gt[:n], traj[:n])))
+        summary["ate_rmse"] = ate_rmse(gt[:n], traj[:n], align=True)
+    print(json.dumps(summary, indent=2))
+    return 0
+
+
+def _cmd_kitti_eval(args) -> int:
+    from .eval.kitti import (ate_rmse, average_errors, calc_sequence_errors,
+                             rpe)
+    from .io.poses import read_kitti_poses
+
+    if args.plot:
+        raise NotImplementedError(
+            "kitti-eval --plot: the plots (eval/plots.py) are not ported "
+            "yet (ROADMAP Q1 #14)")
+    gt = read_kitti_poses(args.ground_truth)
+    res = read_kitti_poses(args.result)
+    n = min(len(gt), len(res))
+    summary = average_errors(calc_sequence_errors(gt[:n], res[:n]))
+    summary["ate_rmse"] = ate_rmse(gt[:n], res[:n], align=args.align)
+    r = rpe(gt[:n], res[:n])
+    summary["rpe_trans"] = r["rpe_trans_rmse_m"]
+    summary["rpe_rot"] = r["rpe_rot_rmse_deg"]
+    print(json.dumps(summary, indent=2))
+    return 0
+
+
+def _cmd_remove_ground(args) -> int:
+    from .cloud import Cloud
+    from .io.pcd import read_cloud, write_pcd
+    from .ops.ground import GroundFilterConfig, remove_ground
+    from .pipeline.app import check_device
+
+    dev = check_device(args.device, "remove-ground")
+    pts, vp = read_cloud(args.infile)
+    cloud = Cloud.from_numpy(pts, capacity=_pow2_capacity(len(pts)),
+                             device=dev)
+    cfg = GroundFilterConfig(cell_size=args.cell_size,
+                             max_window_size=args.max_window,
+                             slope=args.slope,
+                             initial_distance=args.initial_distance,
+                             max_distance=args.max_distance)
+    non_ground, ground = remove_ground(cloud.points, cloud.mask, cfg)
+    points = cloud.points.cpu().numpy()
+    obj = points[non_ground.cpu().numpy()]
+    grd = points[ground.cpu().numpy()]
+    write_pcd(args.outfile, obj, viewpoint=vp)
+    if args.ground_out:
+        write_pcd(args.ground_out, grd, viewpoint=vp)
+    print(json.dumps({"input": len(pts), "object": len(obj),
+                      "ground": len(grd)}))
+    return 0
+
+
+def _cmd_make_cube(args) -> int:
+    from .io.pcd import write_pcd
+    from .tools.synthetic import cube_cloud
+
+    pts = cube_cloud(n_per_face=args.n_per_face, size=args.size,
+                     seed=args.seed, noise=args.noise)
+    write_pcd(args.output, pts)
+    print(json.dumps({"points": len(pts), "output": args.output}))
+    return 0
+
+
+def _cmd_concat(args) -> int:
+    from .io.pcd import read_cloud, write_pcd
+    from .native import voxel_downsample
+
+    merged = np.concatenate([read_cloud(p)[0] for p in args.inputs])
+    if args.voxel > 0:
+        merged = voxel_downsample(merged, args.voxel)
+    write_pcd(args.output, merged)
+    print(json.dumps({"points": len(merged), "output": args.output}))
+    return 0
+
+
+def _cmd_oxts_to_kitti(args) -> int:
+    from .io.oxts import read_oxts_directory
+    from .io.poses import write_kitti_poses
+
+    poses = read_oxts_directory(args.oxts_dir)
+    write_kitti_poses(args.output, poses)
+    print(json.dumps({"poses": len(poses), "output": args.output}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="aicp_mapping_tpu_torch", description=__doc__,
@@ -425,6 +621,84 @@ def build_parser() -> argparse.ArgumentParser:
     lz.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
     lz.set_defaults(func=_cmd_localize)
+    o = sub.add_parser("overlap", help="voxel-occupancy overlap of two clouds")
+    o.add_argument("cloud_a")
+    o.add_argument("cloud_b")
+    o.add_argument("--resolution", type=float, default=0.2)
+    o.add_argument("--device", default="cuda",
+                   help="torch device (default: the card)")
+    o.set_defaults(func=_cmd_overlap)
+
+    c = sub.add_parser("classifier", help="train/test the risk classifier")
+    c.add_argument("--train", help="labelled training file (id ov align label)")
+    c.add_argument("--test", help="labelled testing file")
+    c.add_argument("--model", help="model path to save (with --train) or load")
+    c.add_argument("--save-probs", help="write per-sample probabilities")
+    c.add_argument("--save-eval", help="write the test metrics as JSON")
+    c.add_argument("--compare-probs",
+                   help="score another classifier's `id prob` file on the "
+                        "same test set")
+    c.add_argument("--threshold", type=float, default=0.5)
+    c.add_argument("--device", default="cuda",
+                   help="torch device of the training (default: the card)")
+    c.set_defaults(func=_cmd_classifier)
+
+    kr = sub.add_parser("kitti-run",
+                        help="run a KITTI velodyne sequence end-to-end")
+    kr.add_argument("scan_dir", help="directory of velodyne .bin scans")
+    kr.add_argument("-o", "--output-poses", required=True,
+                    help="write KITTI-format trajectory")
+    kr.add_argument("--config", help="AICP YAML config")
+    kr.add_argument("--max-frames", type=int)
+    kr.add_argument("--stride", type=int, default=1)
+    kr.add_argument("--remove-ground", action="store_true")
+    kr.add_argument("--ground-truth", help="evaluate against this poses file")
+    kr.add_argument("--device", default="cuda",
+                    help="torch device (default: the card)")
+    kr.set_defaults(func=_cmd_kitti_run)
+
+    k = sub.add_parser("kitti-eval", help="KITTI segment errors + ATE/RPE")
+    k.add_argument("ground_truth")
+    k.add_argument("result")
+    k.add_argument("--align", action="store_true",
+                   help="Umeyama-align before ATE")
+    k.add_argument("--plot", help="trajectory plot PNG (not ported: raises)")
+    k.set_defaults(func=_cmd_kitti_eval)
+
+    g = sub.add_parser("remove-ground", help="progressive morphological filter")
+    g.add_argument("-i", "--infile", required=True)
+    g.add_argument("-o", "--outfile", required=True)
+    g.add_argument("--ground-out", help="also write the extracted ground")
+    g.add_argument("--cell-size", type=float, default=0.33)
+    g.add_argument("--max-window", type=int, default=33)
+    g.add_argument("--slope", type=float, default=0.1)
+    g.add_argument("--initial-distance", type=float, default=0.1)
+    g.add_argument("--max-distance", type=float, default=2.0)
+    g.add_argument("--device", default="cuda",
+                   help="torch device (default: the card)")
+    g.set_defaults(func=_cmd_remove_ground)
+
+    m = sub.add_parser("make-cube", help="synthetic cube-cloud generator")
+    m.add_argument("output")
+    m.add_argument("--n-per-face", type=int, default=2000)
+    m.add_argument("--size", type=float, default=4.0)
+    m.add_argument("--noise", type=float, default=0.0)
+    m.add_argument("--seed", type=int, default=0)
+    m.set_defaults(func=_cmd_make_cube)
+
+    ox = sub.add_parser("oxts-to-kitti",
+                        help="KITTI trajectory from raw OXTS/GPS records")
+    ox.add_argument("oxts_dir", help="directory of per-frame OXTS .txt files")
+    ox.add_argument("-o", "--output", required=True,
+                    help="KITTI-format poses output")
+    ox.set_defaults(func=_cmd_oxts_to_kitti)
+
+    cc = sub.add_parser("concat", help="concatenate clouds")
+    cc.add_argument("output")
+    cc.add_argument("inputs", nargs="+")
+    cc.add_argument("--voxel", type=float, default=0.0,
+                    help="optional voxel downsample of the result")
+    cc.set_defaults(func=_cmd_concat)
     return p
 
 

@@ -1,1 +1,8 @@
-from .kitti import ate_rmse, umeyama_alignment  # noqa: F401
+from .kitti import (  # noqa: F401
+    ate_rmse,
+    average_errors,
+    calc_sequence_errors,
+    rpe,
+    trajectory_distances,
+    umeyama_alignment,
+)

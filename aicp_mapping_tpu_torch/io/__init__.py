@@ -1,3 +1,9 @@
+from .oxts import (  # noqa: F401
+    lat_to_scale,
+    latlon_to_mercator,
+    oxts_records_to_poses,
+    read_oxts_directory,
+)
 from .pcd import read_cloud, read_pcd, viewpoint_to_pose, write_pcd  # noqa: F401
 from .poses import (  # noqa: F401
     PoseWithTime,

@@ -1,8 +1,10 @@
 """Profile the App's frame at the bench operating point on one NVIDIA GPU,
-without and with failure prediction, or the streaming front-end.
+without and with failure prediction, the streaming front-end, or the
+KITTI frame.
 
     python3 -m aicp_mapping_tpu_torch.tools.profile_frame [--frames 8]
     python3 -m aicp_mapping_tpu_torch.tools.profile_frame --pipelined
+    python3 -m aicp_mapping_tpu_torch.tools.profile_frame --kitti
 
 The cell is `chip_smoke.py`'s bench slice: 60,000-point scans of the bench
 sequence (`profile_localize.SCAN_ARGS`), 65,536 raw / 16,384 voxels /
@@ -33,6 +35,14 @@ the port's kernel launches per frame, and one more pass under
 over the timed passes' median wall time per frame; the profiler slows the
 pass it records), kernel launches and host reads (device-to-host copies)
 per frame.
+
+`--kitti` profiles the KITTI frame as `eval.kitti_runner` runs it: the
+KITTI default config (131,072 raw / 32,768 voxels / 16,384 filtered
+points, normal-space trim), scans of `make_urban_world(seed=0)` by the
+64-beam scanner at 2,048 azimuths along `drive_trajectory(speed=10.0)`,
+each uploaded, its ground removed on the device (0.5 m cells, 256 x 256)
+and moved to a GPS-grade prior (the truth with 0.2 m of noise), through
+the same three steps; the staged pass also times the ground removal.
 
 Prints one JSON object per row and writes them to `--out`. Exits non-zero
 without a result when CUDA is unavailable.
@@ -84,23 +94,59 @@ def _staged(torch, stage_ms):
     return undo
 
 
-def profile_row(torch, items, frames: int, risk: bool) -> dict:
+def kitti_items(n: int) -> list:
+    """(utime, sensor-frame scan, prior pose) of the KITTI cell's `n`
+    frames: the drive relative to its first pose, priors 0.2 m off in x
+    and y."""
+    from .urban import drive_trajectory, make_urban_world, velodyne_scan
+
+    world = make_urban_world(seed=0)
+    gt = drive_trajectory(n, world, speed=10.0)
+    rel = np.linalg.inv(gt[0])[None] @ gt
+    rng = np.random.default_rng(0)
+    priors = rel.astype(np.float32)
+    priors[:, :2, 3] += rng.normal(0, 0.2, (n, 2)).astype(np.float32)
+    return [(i * 100_000, velodyne_scan(world, T, n_azimuth=2048, seed=i),
+             priors[i]) for i, T in enumerate(gt)]
+
+
+def profile_row(torch, items, frames: int, risk: bool = False,
+                kitti: bool = False) -> dict:
     from .. import _kernels
     from ..cloud import AlignedCloud, Cloud
+    from ..eval.kitti_runner import kitti_config
     from ..ops import segmentation
+    from ..ops.ground import GroundFilterConfig, remove_ground
     from ..pipeline.app import App
 
-    cfg = bench_config()
+    cfg = kitti_config() if kitti else bench_config()
     if risk:
         cfg.failure_prediction_mode = True
         cfg.classifier_path = CLASSIFIER
     app = App(cfg, device="cuda")
     frames_left = iter(items)
+    gcfg = GroundFilterConfig(cell_size=0.5, grid_dim=256)
+    stage_ms = collections.defaultdict(float)
+    staged = []
 
     def step():
         utime, pts, pose = next(frames_left)
-        app.process_cloud(AlignedCloud.create(utime, Cloud.from_numpy(
-            pts, capacity=cfg.raw_capacity), pose))
+        if not kitti:
+            app.process_cloud(AlignedCloud.create(utime, Cloud.from_numpy(
+                pts, capacity=cfg.raw_capacity), pose))
+            return
+        cloud = Cloud.from_numpy(pts, capacity=cfg.raw_capacity,
+                                 device="cuda")
+        if staged:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        non_ground, _ = remove_ground(cloud.points, cloud.mask, gcfg)
+        if staged:
+            torch.cuda.synchronize()
+            stage_ms["remove_ground"] += (time.perf_counter() - t0) * 1e3
+        cloud = Cloud(cloud.points, non_ground).transform(
+            torch.as_tensor(pose, device="cuda"))
+        app.process_cloud(AlignedCloud.create(utime, cloud, pose))
 
     for _ in range(1 + WARMUP):
         step()
@@ -112,14 +158,15 @@ def profile_row(torch, items, frames: int, risk: bool) -> dict:
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
 
-    stage_ms = collections.defaultdict(float)
     undo = _staged(torch, stage_ms)
     segmentation.reset_propagation_rounds()
     _kernels.reset_launch_counts()
+    staged.append(True)
     try:
         for _ in range(frames):
             step()
     finally:
+        staged.clear()
         undo()
     rounds = segmentation.propagation_rounds()
     port_launches = _kernels.launch_counts()
@@ -142,6 +189,7 @@ def profile_row(torch, items, frames: int, risk: bool) -> dict:
     device_ms = sum(by_name.values()) / 1e3 / frames
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return dict(
+        cell="kitti" if kitti else "bench",
         failure_prediction=risk, frames=frames, frame_ms=wall,
         frame_ms_mean=float(np.mean(wall)),
         stage_ms_per_frame={k: v / frames for k, v in stage_ms.items()},
@@ -239,9 +287,13 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--pipelined", action="store_true",
                     help="profile the streaming front-end (the stream cell)")
+    ap.add_argument("--kitti", action="store_true",
+                    help="profile the KITTI frame (the KITTI default "
+                         "config, ground removal on the card)")
     ap.add_argument("--out", default=None,
                     help="default chiprun_out/profile_frame.json, "
-                         "or profile_stream.json with --pipelined")
+                         "profile_stream.json with --pipelined, "
+                         "profile_kitti.json with --kitti")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_frame: torch.cuda.is_available() is False",
@@ -261,6 +313,11 @@ def main(argv=None) -> int:
         items, _ = synthetic_sequence(n_frames=STREAM_FRAMES, **SCAN_ARGS)
         rows.append(dict(device=gpu, **profile_stream(torch, items)))
         print(json.dumps(rows[-1]), flush=True)
+    elif args.kitti:
+        items = kitti_items(1 + WARMUP + 3 * args.frames)
+        rows.append(dict(device=gpu, **profile_row(
+            torch, items, args.frames, kitti=True)))
+        print(json.dumps(rows[-1]), flush=True)
     else:
         items, _ = synthetic_sequence(n_frames=1 + WARMUP + 3 * args.frames,
                                       **SCAN_ARGS)
@@ -269,6 +326,7 @@ def main(argv=None) -> int:
                 torch, items, args.frames, risk)))
             print(json.dumps(rows[-1]), flush=True)
     out = args.out or ("chiprun_out/profile_stream.json" if args.pipelined
+                       else "chiprun_out/profile_kitti.json" if args.kitti
                        else "chiprun_out/profile_frame.json")
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:

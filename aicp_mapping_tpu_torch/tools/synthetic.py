@@ -1,10 +1,32 @@
-"""Synthetic point-cloud generators (numpy only): copies of the room and
-corridor generators of `aicp_mapping_tpu.tools.synthetic`, so the port's
-scripts make the same scenes from the same seed on a machine without JAX.
+"""Synthetic point-cloud generators (numpy only): copies of the cube, room
+and corridor generators of `aicp_mapping_tpu.tools.synthetic`, so the
+port's scripts make the same scenes from the same seed on a machine
+without JAX. `cube_cloud` is the reference's validation target (an
+axis-aligned cube sampled on its faces, create_cube_cloud.cpp).
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+def cube_cloud(n_per_face: int = 2000, size: float = 4.0, seed: int = 0,
+               noise: float = 0.0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    h = size / 2.0
+    faces = []
+    for axis in range(3):
+        for sign in (-h, h):
+            uv = rng.uniform(-h, h, size=(n_per_face, 2))
+            pts = np.zeros((n_per_face, 3), dtype=np.float32)
+            others = [a for a in range(3) if a != axis]
+            pts[:, others[0]] = uv[:, 0]
+            pts[:, others[1]] = uv[:, 1]
+            pts[:, axis] = sign
+            faces.append(pts)
+    cloud = np.concatenate(faces).astype(np.float32)
+    if noise > 0:
+        cloud = cloud + rng.normal(0, noise, cloud.shape).astype(np.float32)
+    return cloud
 
 
 def room_cloud(n: int = 8000, size: float = 10.0, seed: int = 0,

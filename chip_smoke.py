@@ -62,9 +62,31 @@ launch counts set to 0 just before it and read just after:
   card; (e) one rank on an NCCL mesh running (a). The ranks' launch counts
   of the sharded work are added to the phase's: each rank's inputs and
   references run inside `not_path` and are taken out, and the seed-0
-  front-end that (d) starts from runs before the phase's counts start.
+  front-end that (d) starts from runs before the phase's counts start;
+- the KITTI path (`run_kitti`): 20 KITTI-layout `.bin` scans of the urban
+  world (the 64-beam scanner at 2,048 azimuths, ~121,000 points each)
+  along a 10 m/s drive, through `eval.kitti_runner.run_kitti_sequence`
+  at the KITTI default config (131,072 raw / 32,768 voxels / 16,384
+  filtered points; K1 at 16,384^2, K2 at 32,768) with GPS-grade priors
+  and ground removal on the card, held to tests/test_eval.py's runner
+  assertions but for its error ratio, which is held to the JAX package's
+  own on that drive; its first 4 frames against the CPU App from the
+  card App's state, every scan's ground mask against the CPU's;
+  tests/test_eval.py's own runner test, every assertion; then
+  `kitti-run` and `kitti-eval` through the CLI;
+- the outdoor-accuracy regression (`run_accuracy_phase`):
+  `eval.accuracy.run_accuracy` over 200 frames at its full-width default
+  (region growing at 65,536 / 16,384 / 8,192), printed beside
+  ACCURACY_r3.json with the frames around its first rejection against
+  the CPU App, and tests/test_accuracy.py's own 20-frame regression held
+  to its thresholds;
+- pairs and checkpoints (`run_pairs_and_checkpoints`): `run_pairwise` of
+  3 room clouds at capacity 8,192 (K3 normals, K1 ICP), the `classifier
+  --train/--test` CLI and a checkpointed bench run resumed on the card
+  (bit for bit) and on the CPU, each against the CPU.
 
-Phase 3 also holds K1 and K5 (both modes) to their twins on a scene of
+Phase 3 holds K1 and K2 at the KITTI widths too (16,384^2, 2,048 x
+16,384; 32,768), and holds K1 and K5 (both modes) to their twins on a scene of
 exact ties across the slices their split scans cut the window into, and
 logs each scan's grid (query blocks x splits) beside its time. The
 moments kernels K2 and K3 must give their twins' neighbour counts at every
@@ -332,9 +354,11 @@ def check_kernels(torch, results: dict) -> None:
     # queries: a second scan of the room, slightly moved (an ICP iterate)
     T = se3.se3_exp(torch.tensor([0.05, -0.03, 0.01, 0.0, 0.0, 0.01],
                                  device=dev))
-    # (M, N): the frame path's fine and coarse ICP, and the SLAM path's
-    # front-end and closure ICP at 4,096 x 4,096 (no coarse phase there)
-    for M, N in ((8192, 8192), (1024, 8192), (4096, 4096)):
+    # (M, N): the frame path's fine and coarse ICP, the SLAM path's
+    # front-end and closure ICP at 4,096 x 4,096 (no coarse phase there),
+    # and the KITTI widths' fine and coarse ICP
+    for M, N in ((8192, 8192), (1024, 8192), (4096, 4096), (16384, 16384),
+                 (2048, 16384)):
         ref = torch.as_tensor(lidar_room(N, seed=1), device=dev)
         rmask = torch.arange(N, device=dev) < N - 3 * N // 128
         payload = torch.cat([ref, torch.as_tensor(
@@ -405,27 +429,32 @@ def check_kernels(torch, results: dict) -> None:
         if n == 65536:
             r.update(ms=ms, plain_ms=plain, **b)
 
-    # K2 at the main path's 16,384 points, Morton-sorted as the prefilter
-    # sorts them
-    N = 16384
-    p = torch.as_tensor(lidar_room(N, seed=3), device=dev)
-    m = torch.arange(N, device=dev) < N - 384
-    codes = banded_nn.morton_codes(p, m, p[m].amin(0), 2.0)
-    codes_s, perm = torch.sort(codes, stable=True)
-    ms = codes_s != banded_nn.SENTINEL
-    args = (p[perm].contiguous(), ms, codes_s, 0.4)
-    starts = banded_nn.banded_window_starts(codes_s, codes_s, N // 1024, 8,
-                                            512, 1024)
-    nbrs = int(normals.sorted_radius_moments(*args)[ms, 9].sum().item())
-    k = check_moments(
-        torch, f"K2 banded_moments N={N}",
-        normals.sorted_radius_moments_kernel, normals.sorted_radius_moments,
-        args, normals.moments_split_plan(N, 8 * 1024, 512), 8 * 1024, ms,
-        OPS_PER_PAIR * window_pairs(ms, ms, starts, 8)
-        + OPS_PER_NEIGHBOUR * nbrs, 21 * N + 40 * N)
-    results["banded_moments"] = dict(
-        max_abs_err=k["err"], bound_by=k["bound_by"],
-        library_ms=k["library_ms"], **moment_numbers(k))
+    # K2 at the main path's 16,384 points and the KITTI widths' 32,768,
+    # Morton-sorted as the prefilter sorts them
+    r = results.setdefault("banded_moments", dict(max_abs_err=0.0))
+    for N in (16384, 32768):
+        p = torch.as_tensor(lidar_room(N, seed=3), device=dev)
+        m = torch.arange(N, device=dev) < N - 384
+        codes = banded_nn.morton_codes(p, m, p[m].amin(0), 2.0)
+        codes_s, perm = torch.sort(codes, stable=True)
+        ms = codes_s != banded_nn.SENTINEL
+        args = (p[perm].contiguous(), ms, codes_s, 0.4)
+        starts = banded_nn.banded_window_starts(codes_s, codes_s, N // 1024,
+                                                8, 512, 1024)
+        nbrs = int(normals.sorted_radius_moments(*args)[ms, 9].sum().item())
+        k = check_moments(
+            torch, f"K2 banded_moments N={N}",
+            normals.sorted_radius_moments_kernel,
+            normals.sorted_radius_moments, args,
+            normals.moments_split_plan(N, 8 * 1024, 512), 8 * 1024, ms,
+            OPS_PER_PAIR * window_pairs(ms, ms, starts, 8)
+            + OPS_PER_NEIGHBOUR * nbrs, 21 * N + 40 * N)
+        r["max_abs_err"] = max(r["max_abs_err"], k["err"])
+        if N == 16384:
+            r.update(bound_by=k["bound_by"], library_ms=k["library_ms"],
+                     **moment_numbers(k))
+        else:
+            r.update(moment_numbers(k, f"_{N}"))
 
     # K3 at the golden scenario's 4,096 and at 8,192 points
     r = results.setdefault("radius_moments", dict(max_abs_err=0.0))
@@ -1663,6 +1692,394 @@ def run_slam(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
+# KITTI odometry, the outdoor-accuracy regression, pairs and checkpoints
+# ---------------------------------------------------------------------------
+
+KITTI_SCANS = 20          # KITTI-layout scans of the urban world
+KITTI_CPU_FRAMES = 4      # of them, held against the CPU App
+# tests/test_eval.py's runner assertions: the trajectory's error (relative
+# to the first frame, unaligned) under this share of the prior chain's
+# and under KITTI_MAX_ATE, the final yaw within KITTI_MAX_YAW
+KITTI_RATIO = 0.3
+KITTI_MAX_ATE = 0.2       # m
+KITTI_MAX_YAW = 2.0       # deg
+# The JAX package's own ratio on the KITTI-width drive at its KITTI
+# default config (CPU, tests/outdoor_reference.py kitti): the 0.3 above
+# comes from a configuration and drive of its own (below), which the
+# reference does not meet at the KITTI default either; the port is held
+# to the reference there.
+KITTI_REFERENCE_RATIO = 0.527
+ACCURACY_FRAMES = 200     # the length of ACCURACY_r3.json's drive
+# frames of the 200-frame drive held against the CPU App from the card's
+# state: on either package, exact kNN makes frame 31 the first rejection
+# (tests/outdoor_reference.py accuracy 31)
+ACCURACY_CPU_FRAMES = (29, 30, 31, 32)
+
+
+def cli_json(argv) -> dict:
+    """`python -m aicp_mapping_tpu_torch ARGV` in this process; its JSON."""
+    import io
+
+    from aicp_mapping_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert cli.main(list(argv)) == 0
+    return json.loads(buf.getvalue())
+
+
+def kitti_ground_masks(torch, scan_dir: str) -> float:
+    """Each scan's ground mask at the runner's raster (0.5 m, 256 x 256) on
+    the card, equal to the CPU's at every point; returns the mean ground
+    share."""
+    from aicp_mapping_tpu_torch.cloud import Cloud
+    from aicp_mapping_tpu_torch.eval.kitti_runner import list_velodyne_scans
+    from aicp_mapping_tpu_torch.ops.ground import (GroundFilterConfig,
+                                                   ground_mask)
+
+    gcfg = GroundFilterConfig(cell_size=0.5, grid_dim=256)
+    shares = []
+    for path in list_velodyne_scans(scan_dir):
+        pts = np.fromfile(path, np.float32).reshape(-1, 4)[:, :3]
+        card = Cloud.from_numpy(pts, capacity=131072, device="cuda")
+        cpu = Cloud.from_numpy(pts, capacity=131072)
+        g = ground_mask(card.points, card.mask, gcfg).cpu()
+        assert torch.equal(g, ground_mask(cpu.points, cpu.mask, gcfg)), path
+        shares.append(float(g.sum()) / len(pts))
+    return float(np.mean(shares))
+
+
+def checked_app(torch, tag: str, frames):
+    """An App class for a runner that builds its own App: each frame is
+    timed on the card, and the frames numbered in `frames` also run on a
+    CPU App started from the card App's state, held to the golden
+    tolerances."""
+    from aicp_mapping_tpu_torch import AlignedCloud, App, Cloud
+    from aicp_mapping_tpu_torch.convert import (app_state_from_numpy,
+                                                app_state_to_numpy)
+
+    class CheckedApp(App):
+        made: list = []      # the instances, for their frame times
+
+        def __init__(self, cfg, device):
+            super().__init__(cfg, device=device)
+            self.cpu = App(cfg, device="cpu")
+            self.ms: list = []
+            self.made.append(self)
+
+        def process_cloud(self, cloud):
+            i = len(self.ms)
+            if i in frames:
+                if i > 0:
+                    app_state_from_numpy(self.cpu, **app_state_to_numpy(self))
+                twin = AlignedCloud.create(cloud.utime, Cloud(
+                    cloud.cloud.points.cpu(), cloud.cloud.mask.cpu(),
+                    cloud.cloud.pre_voxelized), cloud.prior_pose)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = super().process_cloud(cloud)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            if i in frames:
+                want = self.cpu.process_cloud(twin)
+                log(f"{tag} frame {i}: card {self.ms[-1]:.1f} ms, accepted "
+                    f"{res.accepted} (cpu {want.accepted}), overlap "
+                    f"{res.octree_overlap:.3f} (cpu {want.octree_overlap:.3f})"
+                    f", iters {res.n_iterations} (cpu {want.n_iterations}), "
+                    f"filtered {res.filtered_size} (cpu {want.filtered_size})"
+                    f", correction_t {np.round(res.correction[:3, 3], 4)} "
+                    f"(cpu {np.round(want.correction[:3, 3], 4)})")
+                frame_lines_agree(res, as_line(want), f"{tag} frame {i}")
+            return res
+
+    return CheckedApp
+
+
+@contextlib.contextmanager
+def app_class(module, cls):
+    """Let `module` build its App as `cls` (the runners make their own)."""
+    saved = module.App
+    module.App = cls
+    try:
+        yield
+    finally:
+        module.App = saved
+
+
+def run_kitti(torch) -> None:
+    """The "kitti" phase. (1) `run_kitti_sequence` on the card at the KITTI
+    default config (131,072 raw / 32,768 voxels / 16,384 filtered points,
+    80 m range, normal-space trim) over KITTI_SCANS scans at 2,048
+    azimuths, with GPS-grade priors and ground removal on the device: every
+    frame accepted, the error under KITTI_MAX_ATE and at most the JAX
+    package's share of the prior chain's (KITTI_REFERENCE_RATIO), the
+    final yaw within KITTI_MAX_YAW; its first KITTI_CPU_FRAMES frames
+    against the CPU App from the card App's state (the golden tolerances);
+    every scan's ground mask the CPU's. (2) tests/test_eval.py's own
+    runner test on the card — its drive (14 scans at 512 azimuths cut to
+    16,000 points), configuration and every assertion (KITTI_RATIO). (3)
+    `kitti-run` and `kitti-eval` through the CLI on (1)'s scans."""
+    import tempfile
+
+    from aicp_mapping_tpu_torch import _kernels
+    from aicp_mapping_tpu_torch.eval import kitti_runner
+    from aicp_mapping_tpu_torch.eval.kitti_runner import drive_errors
+    from aicp_mapping_tpu_torch.pipeline.config import PipelineConfig
+    from aicp_mapping_tpu_torch.tools.urban import write_kitti_drive
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        t0 = time.perf_counter()
+        scan_dir, gt_path, gt, priors = write_kitti_drive(d, KITTI_SCANS)
+        scene_s = time.perf_counter() - t0
+        sizes = [os.path.getsize(p) // 16
+                 for p in kitti_runner.list_velodyne_scans(scan_dir)]
+        assert max(sizes) <= 131072, max(sizes)
+        share = kitti_ground_masks(torch, scan_dir)
+        log(f"kitti scene: {KITTI_SCANS} scans of {min(sizes)}-{max(sizes)}"
+            f" points (mean {np.mean(sizes):.0f}), made on the host in "
+            f"{scene_s:.1f} s; ground masks on the card equal to the CPU's "
+            f"at every point, ground share {share:.3f}")
+
+        before = _kernels.launch_counts()
+        with app_class(kitti_runner, checked_app(
+                torch, "kitti", range(KITTI_CPU_FRAMES))):
+            t0 = time.perf_counter()
+            traj, results, app = kitti_runner.run_kitti_sequence(
+                scan_dir, priors=priors, remove_ground=True)
+            wall_s = time.perf_counter() - t0
+        after = _kernels.launch_counts()
+        n = len(results)
+        per_frame = {k: (after[k] - before[k]) / n
+                     for k in ("nn_payload", "banded_moments")}
+        assert all(r is not None and r.accepted for r in results), [
+            (r.accepted, r.inlier_rms) for r in results]
+        e = drive_errors(traj, gt, priors)
+        steady = app.ms[KITTI_CPU_FRAMES:]
+        log(f"kitti on the card ({gpu_line()}): {n} frames, "
+            f"{np.mean(steady):.2f} ms/frame (frames {KITTI_CPU_FRAMES}-"
+            f"{n - 1}; min {min(steady):.2f}, max {max(steady):.2f}), "
+            f"{wall_s:.1f} s with the CPU checks; K1 "
+            f"{per_frame['nn_payload']:.2f} and K2 "
+            f"{per_frame['banded_moments']:.2f} launches per frame; ATE "
+            f"(relative, unaligned) {e['ate_m']:.4f} m, prior chain "
+            f"{e['prior_chain_ate_m']:.4f} m (ratio {e['ratio']:.3f}; the "
+            f"JAX package's {KITTI_REFERENCE_RATIO}), final yaw error "
+            f"{e['final_yaw_deg']:.3f} deg")
+        assert e["ratio"] <= KITTI_REFERENCE_RATIO, e
+        assert e["ate_m"] < KITTI_MAX_ATE, e
+        assert e["final_yaw_deg"] < KITTI_MAX_YAW, e
+
+        out = os.path.join(d, "kitti_run.txt")
+        run = cli_json(["kitti-run", scan_dir, "-o", out, "--ground-truth",
+                        gt_path, "--remove-ground"])
+        ev = cli_json(["kitti-eval", gt_path, out])
+        log(f"kitti-run (constant-velocity model, no priors): "
+            f"{json.dumps(run)}; kitti-eval: {json.dumps(ev)}")
+        assert run["frames"] == KITTI_SCANS and os.path.exists(out)
+        assert isinstance(ev["rpe_trans"], float), ev
+        assert np.isfinite(ev["ate_rmse"]) and np.isfinite(ev["rpe_rot"])
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        scan_dir, _, gt, priors = write_kitti_drive(
+            d, 14, n_azimuth=512, cap=16000, scan_seed=0)
+        cfg = PipelineConfig(raw_capacity=16384, downsample_capacity=8192,
+                             filtered_capacity=4096,
+                             segmentation_method="region_growing",
+                             sensor_range=80.0, max_correction_magnitude=3.0,
+                             trim_ratio_floor=0.50)
+        cfg.icp = dataclasses.replace(cfg.icp, degeneracy_threshold=30.0)
+        t0 = time.perf_counter()
+        traj, results, _ = kitti_runner.run_kitti_sequence(
+            scan_dir, config=cfg, priors=priors, remove_ground=True)
+        e = drive_errors(traj, gt, priors)
+        log(f"kitti, tests/test_eval.py's runner test on the card: 14 frames"
+            f" in {time.perf_counter() - t0:.1f} s, ATE {e['ate_m']:.4f} m, "
+            f"prior chain {e['prior_chain_ate_m']:.4f} m (ratio "
+            f"{e['ratio']:.3f}), final yaw error {e['final_yaw_deg']:.3f} deg")
+        assert all(r is not None and r.accepted for r in results)
+        assert e["ratio"] < KITTI_RATIO, e
+        assert e["ate_m"] < KITTI_MAX_ATE, e
+        assert e["final_yaw_deg"] < KITTI_MAX_YAW, e
+
+
+def accuracy_thresholds(res: dict) -> None:
+    """tests/test_accuracy.py's thresholds."""
+    pipe, odo = res["pipeline"], res["odometry_only"]
+    assert pipe["ate_rmse_noalign_m"] < 0.75 * odo["ate_rmse_noalign_m"], res
+    assert pipe["rpe_rot_rmse_deg"] < 0.75 * odo["rpe_rot_rmse_deg"], res
+    assert pipe["ate_rmse_m"] < 0.08, res
+    assert res["dropped_frames"] == 0, res
+
+
+def run_accuracy_phase(torch) -> None:
+    """The "accuracy" phase. (1) `eval.accuracy.run_accuracy` on the card at
+    its default (outdoor, full-width) config over ACCURACY_FRAMES frames,
+    printed beside ACCURACY_r3.json (the JAX package's record, made on a
+    TPU: its accuracy compares, its wall time is another machine's), with
+    frames ACCURACY_CPU_FRAMES against the CPU App from the card App's
+    state. Under exact kNN (the port everywhere, JAX off the TPU) frame 31
+    is rejected and the drive does not recover, in both packages, so the
+    regression's thresholds are not asserted at this config (ROADMAP Q3).
+    (2) tests/test_accuracy.py's own regression on the card — 20 frames,
+    16,384 / 8,192 / 4,096, a 64 x 512 scanner and its drift — held to its
+    thresholds."""
+    from aicp_mapping_tpu_torch import _kernels
+    from aicp_mapping_tpu_torch.eval.accuracy import run_accuracy
+    from aicp_mapping_tpu_torch.pipeline import app as app_module
+    from aicp_mapping_tpu_torch.pipeline.config import PipelineConfig
+
+    before = _kernels.launch_counts()["nn_payload"]
+    t0 = time.perf_counter()
+    checked = checked_app(torch, "accuracy", ACCURACY_CPU_FRAMES)
+    with app_class(app_module, checked):
+        res = run_accuracy(n_frames=ACCURACY_FRAMES, seed=0)
+    wall_s = time.perf_counter() - t0
+    ms = [m for i, m in enumerate(checked.made[0].ms[2:], 2)
+          if i not in ACCURACY_CPU_FRAMES]
+    launches = _kernels.launch_counts()["nn_payload"] - before
+    with open(os.path.join(ROOT, "ACCURACY_r3.json")) as f:
+        ref = json.load(f)
+    pipe, odo = res["pipeline"], res["odometry_only"]
+    log(f"accuracy on the card ({gpu_line()}): {res['n_frames']} frames "
+        f"({res['track_length_m']} m) in {wall_s:.1f} s, the drive's scans "
+        f"made on the host and {len(ACCURACY_CPU_FRAMES)} CPU frames "
+        f"included; {np.mean(ms):.2f} ms/frame on the card (process_cloud, "
+        f"frames 2-199 but the CPU-checked ones; min {min(ms):.2f},"
+        f" max {max(ms):.2f}); K1 {launches / res['n_frames']:.2f} launches "
+        f"per frame; "
+        f"dropped {res['dropped_frames']} (ACCURACY_r3.json "
+        f"{ref['dropped_frames']})")
+    for k in ("t_err_percent", "r_err_deg_per_m", "ate_rmse_m",
+              "ate_rmse_noalign_m", "rpe_trans_rmse_m", "rpe_rot_rmse_deg"):
+        log(f"accuracy {k}: pipeline {pipe[k]:.5f} (ACCURACY_r3.json "
+            f"{ref['pipeline'][k]:.5f}), odometry {odo[k]:.5f} "
+            f"({ref['odometry_only'][k]:.5f})")
+    assert res["n_frames"] == ACCURACY_FRAMES
+    assert all(np.isfinite(v) for v in pipe.values()), pipe
+    # the drive and its odometry are the JAX package's (the same draws)
+    assert all(abs(odo[k] - ref["odometry_only"][k]) <= 1e-9
+               for k in odo), (odo, ref["odometry_only"])
+
+    cfg = PipelineConfig(working_mode="debug",
+                         segmentation_method="region_growing",
+                         raw_capacity=16384, downsample_capacity=8192,
+                         filtered_capacity=4096)
+    t0 = time.perf_counter()
+    small = run_accuracy(n_frames=20, seed=0, cfg=cfg, seq_kwargs=dict(
+        n_azimuth=512, n_points_cap=16000, drift_per_m=0.025,
+        drift_yaw_deg_per_m=0.2))
+    log(f"accuracy, tests/test_accuracy.py's regression on the card: 20 "
+        f"frames in {time.perf_counter() - t0:.1f} s, dropped "
+        f"{small['dropped_frames']}; pipeline ATE "
+        f"{small['pipeline']['ate_rmse_m']:.4f} m, ATE-noalign "
+        f"{small['pipeline']['ate_rmse_noalign_m']:.4f} (odometry "
+        f"{small['odometry_only']['ate_rmse_noalign_m']:.4f}), RPE rot "
+        f"{small['pipeline']['rpe_rot_rmse_deg']:.4f} deg (odometry "
+        f"{small['odometry_only']['rpe_rot_rmse_deg']:.4f})")
+    accuracy_thresholds(small)
+
+
+def pairs_scene() -> list:
+    """3 overlapping subsets of one room (8,000 points each), world
+    frame."""
+    from aicp_mapping_tpu_torch.tools.synthetic import room_cloud
+
+    world = room_cloud(n=12000, seed=6, noise=0.01)
+    rng = np.random.default_rng(0)
+    return [world[rng.choice(len(world), 8000, replace=False)]
+            for _ in range(3)]
+
+
+def run_pairs_and_checkpoints(torch) -> None:
+    """The "pairs and checkpoints" phase: `run_pairwise` of 3 room clouds at
+    capacity 8,192 (K3 normals, K1 ICP) against the CPU (overlap within 2
+    %, |t| within 0.01 m); the `classifier --train/--test` CLI on the
+    synthetic label sets against the CPU (the same confusion counts,
+    probabilities within 1e-4); the bench point's 6 frames with a
+    checkpoint after frame 3, resumed on the card (frames 4-6 the
+    uninterrupted run's bits) and on the CPU (the golden tolerances)."""
+    import tempfile
+
+    from aicp_mapping_tpu_torch import AlignedCloud, App, Cloud
+    from aicp_mapping_tpu_torch.eval.experiment import run_pairwise
+    from aicp_mapping_tpu_torch.io import checkpoint
+    from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
+
+    clouds = pairs_scene()
+    poses = [np.eye(4, dtype=np.float32)] * 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card = run_pairwise(clouds, poses, capacity=8192)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = run_pairwise(clouds, poses, capacity=8192, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for a, b in zip(card, cpu):
+        assert (a.reference_id, a.reading_id) == (b.reference_id,
+                                                  b.reading_id)
+        assert abs(a.octree_overlap - b.octree_overlap) <= TOL_OVERLAP, (a, b)
+        assert abs(a.t_error - b.t_error) <= 0.01, (a, b)
+        assert a.t_error < 0.05, a
+    log(f"pairs on the card: {len(card)} pairs in {card_s:.2f} s (CPU "
+        f"{cpu_s:.1f} s); overlap {[round(r.octree_overlap, 2) for r in card]}"
+        f" (cpu {[round(r.octree_overlap, 2) for r in cpu]}); |t| "
+        f"{[round(r.t_error, 5) for r in card]}")
+
+    labels = os.path.join(ROOT, "data", "labels")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        runs = {}
+        for dev in ("cuda", "cpu"):
+            probs = os.path.join(d, f"{dev}.txt")
+            t0 = time.perf_counter()
+            runs[dev] = cli_json([
+                "classifier", "--train",
+                os.path.join(labels, "training_synthetic.txt"), "--test",
+                os.path.join(labels, "testing_synthetic.txt"),
+                "--save-probs", probs, "--device", dev])
+            runs[dev + "_s"] = time.perf_counter() - t0
+            runs[dev + "_probs"] = np.loadtxt(probs)
+        dp = float(np.abs(runs["cuda_probs"] - runs["cpu_probs"]).max())
+        log(f"classifier --train/--test: card {runs['cuda_s']:.2f} s, CPU "
+            f"{runs['cpu_s']:.2f} s; confusion card "
+            f"{[runs['cuda'][k] for k in ('tp', 'tn', 'fp', 'fn')]} (cpu "
+            f"{[runs['cpu'][k] for k in ('tp', 'tn', 'fp', 'fn')]}), AUC "
+            f"{runs['cuda']['auc']:.4f}, max |dp| {dp:.3g}")
+        for k in ("tp", "tn", "fp", "fn"):
+            assert runs["cuda"][k] == runs["cpu"][k], k
+        assert dp <= 1e-4, dp
+
+        cfg = cells().bench_config()
+        items, _ = synthetic_sequence(n_frames=6, **cells().SCAN_ARGS)
+
+        def frame(utime, pts, pose, dev="cuda"):
+            return AlignedCloud.create(utime, Cloud.from_numpy(
+                pts, capacity=cfg.raw_capacity, device=dev), pose)
+
+        full = App(cfg)
+        want = [full.process_cloud(frame(*it)) for it in items]
+        app = App(cfg)
+        for it in items[:3]:
+            app.process_cloud(frame(*it))
+        path = os.path.join(d, "state")
+        checkpoint.save_checkpoint(app, path)
+        back = checkpoint.load_checkpoint(path)
+        got = [back.process_cloud(frame(*it)) for it in items[3:]]
+        for g, w in zip(got, want[3:]):
+            assert (g.accepted, g.registered) == (w.accepted, w.registered)
+            assert np.array_equal(g.correction, w.correction), (g, w)
+            assert np.array_equal(g.corrected_pose, w.corrected_pose)
+        cpu_app = checkpoint.load_checkpoint(path, device="cpu")
+        for i, it in enumerate(items[3:]):
+            frame_lines_agree(cpu_app.process_cloud(frame(*it, dev="cpu")),
+                              as_line(want[3 + i]), f"resumed frame {3 + i}")
+        size = os.path.getsize(path + ".npz")
+        log(f"checkpoint after frame 2 of the bench point: frames 3-5 "
+            f"resumed on the card bit for bit the uninterrupted run's, on "
+            f"the CPU within the golden tolerances ({size} B npz)")
+
+
+# ---------------------------------------------------------------------------
 # Distribution: ranks on the card (processes started by parallel.launch)
 # ---------------------------------------------------------------------------
 
@@ -2105,7 +2522,7 @@ def main() -> int:
     check_nn_api_kernels(torch, results, nn)
     check_tie_scenes(torch)
 
-    # 4-13. the main paths, each with its own launch counts
+    # 4-16. the main paths, each with its own launch counts
     bench_ms, stream, one_rank = {}, {}, {}
     paths = [
         drive("frame", lambda: bench_ms.update(
@@ -2131,6 +2548,12 @@ def main() -> int:
               ("nn_payload", "radius_moments")),
         drive("stream", lambda: stream.update(run_stream(torch)),
               ("nn_payload", "banded_moments")),
+        drive("kitti", lambda: run_kitti(torch),
+              ("nn_payload", "banded_moments")),
+        drive("accuracy", lambda: run_accuracy_phase(torch),
+              ("nn_payload",)),
+        drive("pairs and checkpoints", lambda: run_pairs_and_checkpoints(
+            torch), ("nn_payload", "radius_moments")),
     ]
     dist_dir = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
     snapshot = frontend_snapshot(dist_dir.name)   # an input, not counted
@@ -2147,7 +2570,7 @@ def main() -> int:
         "launches per frame")
     counts = {k: sum(c[k] for c in paths) for k in KERNELS}
 
-    # 14. the main paths went through every kernel
+    # 17. the main paths went through every kernel
     log(f"launches on all paths: {counts}")
     assert all(counts[k] > 0 for k in KERNELS), counts
 

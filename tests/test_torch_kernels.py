@@ -67,7 +67,8 @@ def test_build_is_keyed_by_the_sources():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,N", [(8192, 8192), (1024, 8192), (1000, 1777)])
+@pytest.mark.parametrize("M,N", [(8192, 8192), (1024, 8192), (1000, 1777),
+                                 (16384, 16384), (2048, 16384)])
 def test_nn_payload_kernel_matches_plain(cuda, M, N):
     """K1: >= 99.7% identical payload rows, |d2| within 3e-3 m^2."""
     q = torch.as_tensor(_lidar_room(M, 1), device=cuda)
@@ -139,10 +140,10 @@ def test_radius_moments_kernel_matches_plain(cuda, N):
 
 
 @pytest.mark.cuda
-def test_banded_moments_kernel_matches_plain(cuda):
-    """K2 at the main path's 16,384 sorted points, via the prefilter's
-    shape-based dispatch."""
-    N = 16384
+@pytest.mark.parametrize("N", [16384, 32768])
+def test_banded_moments_kernel_matches_plain(cuda, N):
+    """K2 at the main path's 16,384 sorted points and the KITTI widths'
+    32,768, via the prefilter's shape-based dispatch."""
     p = torch.as_tensor(_lidar_room(N, 4), device=cuda)
     m = torch.arange(N, device=cuda) < N - 384
     codes = banded_nn.morton_codes(p, m, p[m].amin(0), 2.0)
@@ -455,3 +456,50 @@ def test_banded_moments_kernel_beyond_64_blocks(cuda):
     assert torch.equal(got, normals._radius_moments_banded(p, m, 0.4))
     n, _, _ = normals.radius_normals(p, m, 0.4)
     assert bool(torch.isfinite(n).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 3])
+def test_ground_mask_on_the_card_is_the_cpus(cuda, seed):
+    """The ground filter at the KITTI runner's raster: the card labels
+    every point as the CPU does (float64 raster centre, float32 cell
+    arithmetic on device tensors)."""
+    from aicp_mapping_tpu_torch.ops.ground import (GroundFilterConfig,
+                                                   ground_mask)
+    from aicp_mapping_tpu_torch.tools.urban import (drive_trajectory,
+                                                    make_urban_world,
+                                                    velodyne_scan)
+
+    world = make_urban_world(seed=seed)
+    pose = drive_trajectory(5, world, speed=10.0, seed=seed)[4]
+    pts = torch.as_tensor(velodyne_scan(world, pose, n_azimuth=2048))
+    n = pts.shape[0]
+    p = torch.zeros((131072, 3))
+    p[:n] = pts
+    m = torch.arange(131072) < n
+    cfg = GroundFilterConfig(cell_size=0.5, grid_dim=256)
+    want = ground_mask(p, m, cfg)
+    got = ground_mask(p.to(cuda), m.to(cuda), cfg)
+    assert torch.equal(got.cpu(), want)
+    assert 0.2 < float(want.sum()) / n < 0.9
+
+
+@pytest.mark.cuda
+def test_classifier_training_on_the_card_is_the_cpus(cuda):
+    """`RiskClassifier.train` on the card gives the CPU's model: its
+    reductions are float64 rounded once."""
+    import os
+
+    from aicp_mapping_tpu_torch.classification import (RiskClassifier,
+                                                       load_label_file)
+
+    root = os.path.join(os.path.dirname(__file__), "..", "data", "labels")
+    feats, labels = load_label_file(os.path.join(root,
+                                                 "training_synthetic.txt"))
+    card, cpu = RiskClassifier(device="cuda"), RiskClassifier(device="cpu")
+    card.train(feats, labels)
+    cpu.train(feats, labels)
+    torch.testing.assert_close(card.model.w.cpu(), cpu.model.w, rtol=1e-4,
+                               atol=1e-6)
+    torch.testing.assert_close(card.test(feats), cpu.test(feats), rtol=0,
+                               atol=1e-4)

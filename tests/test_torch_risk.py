@@ -201,8 +201,14 @@ def test_classifier_matches_jax(tmp_path):
     np.testing.assert_allclose(moved.test(x).numpy(),
                                np.asarray(jclf.test(x)), atol=1e-5)
     assert moved.threshold == jclf.threshold
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        clf.train(x, labels)
+    # training is ported (tests/test_torch_classifier_train.py holds it to
+    # JAX's); it runs on the classifier's device, the card by default
+    trained = tclf.RiskClassifier(device="cpu")
+    trained.train(x, labels, steps=50)
+    assert trained.test(x).shape == (200,)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            clf.train(x, labels)
 
 
 def test_load_label_file_matches_jax():

@@ -34,6 +34,10 @@ K1_PLANS = {
     (1024, 65536): (4, 261, 252),
     (8192, 131072): (4, 33, 3972),
     (1024, 131072): (4, 263, 500),
+    # the KITTI widths (eval/kitti_runner.py): fine ICP at 16,384^2 and the
+    # coarse phase's 2,048 x 16,384
+    (16384, 16384): (4, 17, 964),
+    (2048, 16384): (4, 128, 128),
 }
 K5_PLANS = {
     (8192, 8192, 8): (4, 33, 252),
@@ -53,6 +57,7 @@ K5_PLANS = {
 MOMENTS_PLANS = {
     ("K2", 16384, 512): (4, 16, 512),
     ("K2", 262144, 512): (4, 1, 8192),
+    ("K2", 32768, 512): (4, 8, 1024),      # the KITTI prefilter's voxels
     ("K2", 16384, 256): (2, 8, 1024),
     ("K3", 4096, None): (4, 32, 128),
     ("K3", 8192, None): (4, 32, 256),
@@ -107,6 +112,37 @@ def test_banded_split_plan_at_main_path_shapes(M, N, band):
     _assert_covers(plan, band * 1024, qb)
     banded_nn.banded_split_plan.cache_clear()
     assert banded_nn.banded_split_plan(M, band) == plan
+
+
+# (kind, M or N) -> the grid's blocks (query blocks x splits) at the KITTI
+# widths: one wave is 132 SMs x 4 blocks = 528
+KITTI_GRIDS = {("K1", 16384, 16384): 32 * 17, ("K1", 2048, 16384): 4 * 128,
+               ("K2", 32768, 32768): 64 * 8}
+
+
+@pytest.mark.parametrize("kind,M,N", sorted(KITTI_GRIDS))
+def test_kitti_widths_fill_one_wave(kind, M, N):
+    """At the KITTI widths each scan's grid is one wave of the card: K1's
+    rounds its slices up to a whole wave (or stops at MIN_SPLIT-reference
+    slices), K2's stays within one."""
+    wave = knn.SMS * knn.BLOCKS_PER_SM
+    if kind == "K1":
+        plan = knn.nn_split_plan(M, N)
+        width = N
+    else:
+        plan, width = _moments_plan("K2", N, 512)
+    blocks = -(-M // (knn.THREADS * plan.queries_per_thread))
+    assert blocks * plan.splits == KITTI_GRIDS[(kind, M, N)]
+    assert 0.96 * wave <= blocks * plan.splits <= 1.04 * wave
+    if kind == "K1":
+        assert (blocks * plan.splits >= wave
+                or plan.split_len == knn.MIN_SPLIT)
+    else:
+        assert blocks * plan.splits <= wave
+        # every reference of the 8-block window in exactly one block
+        refs = _pieces(plan, width)
+        assert torch.equal(torch.sort(torch.cat(refs)).values,
+                           torch.arange(width))
 
 
 @pytest.mark.parametrize("M,N", [(1, 1), (1000, 1777), (513, 129),
