@@ -15,13 +15,16 @@ one scan pair through `python -m aicp_mapping_tpu_torch register`; the SLAM
 back-end (loop closures, pose-graph optimization, plane BA) through
 `pipeline.mapper.PoseGraphMapper`, `python -m aicp_mapping_tpu_torch slam`
 and `eval.slam_accuracy`; recorded sequences through the `replay`,
-`accumulate` and `localize` commands. The entry points run on the card
-unless given
-`device="cpu"`. The TPU kernels
-on those paths are hand-written CUDA C++ for sm_90a (see `_kernels`).
+`accumulate` and `localize` commands; what the App publishes through the
+visualizer sinks of `utils` (the live TCP viewer among them). It answers
+to the JAX package's public names (the few renamed or left out stand in
+tests/test_torch_surface.py). The entry points run on the card unless
+given `device="cpu"`. The TPU kernels on those paths are hand-written
+CUDA C++ for sm_90a (see `_kernels`).
 
-This package imports torch and numpy only, never jax or the JAX package:
-the machines that run it have no JAX.
+This package imports torch and numpy only (matplotlib inside
+`eval.plots`' functions), never jax or the JAX package: the machines that
+run it have no JAX.
 """
 
 __version__ = "0.1.0"
@@ -36,7 +39,12 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
-from .cloud import AlignedCloud, AlignedCloudsGraph, Cloud  # noqa: E402,F401
+from .cloud import (  # noqa: E402,F401
+    AlignedCloud,
+    AlignedCloudsGraph,
+    Cloud,
+    NormalCloud,
+)
 from .geometry import se3  # noqa: E402,F401
 from .pipeline.app import App, FrameResult  # noqa: E402,F401
 from .pipeline.config import (  # noqa: E402,F401

@@ -6,7 +6,9 @@
     python -m aicp_mapping_tpu_torch accumulate DIRECTORY -o OUT.pcd
     python -m aicp_mapping_tpu_torch localize DIRECTORY --map MAP.pcd
     python -m aicp_mapping_tpu_torch kitti-run SCAN_DIR -o POSES.txt
-    python -m aicp_mapping_tpu_torch kitti-eval GT.txt RESULT.txt
+    python -m aicp_mapping_tpu_torch kitti-eval GT.txt RESULT.txt [--plot P]
+    python -m aicp_mapping_tpu_torch draw CLOUD OUT.vtk [--mode normals]
+    python -m aicp_mapping_tpu_torch vtk-to-octree IN.vtk OUT.pcd
 
 register   register one reading/reference scan pair: octree overlap, kNN
            normals, FOV overlap, alignability, the risk classifier,
@@ -21,8 +23,9 @@ slam       end-to-end SLAM over a recorded sequence directory or a
            `--mesh-devices N` > 1 the PGO is edge-sharded and the plane BA
            observation-sharded over N ranks.
 replay     replay a recorded sequence directory through the App; prints
-           frame counts, writes the trajectory (`--live-viz`, the JAX
-           package's live viewer, is ROADMAP Q1 #14 and raises).
+           frame counts, writes the trajectory; `--live-viz PORT` streams
+           the App's clouds, maps, poses and metrics to TCP viewers
+           (`utils.live_viz`; 0 picks a free port, printed on stderr).
 accumulate concatenate a recorded sequence's scans into one odom-frame
            cloud (range crop, optional voxel grid) and write it as PCD.
 localize   localize a recorded sequence against a prior map, split into
@@ -34,7 +37,14 @@ classifier train (`--train`) and test (`--test`) the alignment-risk
 kitti-run  run a KITTI velodyne sequence (`.bin` scans) end to end at the
            HDL-64 widths, optionally removing the ground first; with
            `--ground-truth` also the devkit errors and the ATE.
-kitti-eval the KITTI devkit segment errors, ATE and RPE of a trajectory.
+kitti-eval the KITTI devkit segment errors, ATE and RPE of a trajectory;
+           `--plot P.png` also draws the paths and, beside them,
+           `P_err.png` the segment errors (matplotlib).
+draw       a cloud as VTK line geometry: the occupied octree cells'
+           wireframes (`--mode octree`) or kNN normal whiskers
+           (`--mode normals`, on the device).
+vtk-to-octree   a VTK cloud's occupied voxel cells, one point per cell, as
+           PCD or VTK.
 remove-ground   the progressive morphological ground filter of one cloud.
 oxts-to-kitti   a KITTI trajectory from raw OXTS (GPS/IMU) records.
 make-cube  the synthetic cube cloud; concat: concatenate clouds.
@@ -44,8 +54,7 @@ is given. `--mesh-devices N` > 1 starts N ranks (processes) itself — rank r
 on card r % cards, NCCL when each rank has a card of its own, else gloo —
 or, under `torchrun` with N processes, joins that group; rank 0 runs the
 command, writes its outputs and prints the summary, which carries
-`mesh_devices` and the backend. The JAX package's `draw` and
-`vtk-to-octree` are not ported yet (ROADMAP Q1 #14).
+`mesh_devices` and the backend.
 """
 from __future__ import annotations
 
@@ -255,15 +264,23 @@ def _cmd_replay(args) -> int:
     from .pipeline.config import PipelineConfig, load_yaml_config
     from .pipeline.sequence import SequenceRunner
 
-    if args.live_viz is not None:
-        raise NotImplementedError(
-            "replay --live-viz: the live viewer is ROADMAP Q1 #14")
     cfg = load_yaml_config(args.config) if args.config else PipelineConfig()
-    app = App(cfg, device=args.device)
+    vis = None
+    if args.live_viz is not None:
+        from .utils.live_viz import LiveVisualizer
+
+        vis = LiveVisualizer(port=args.live_viz)
+        print(f"live viz streaming on {vis.address[0]}:{vis.address[1]}",
+              file=sys.stderr)
     try:
-        results = SequenceRunner(app).run_directory(args.directory)
+        app = App(cfg, device=args.device, visualizer=vis)
+        try:
+            results = SequenceRunner(app).run_directory(args.directory)
+        finally:
+            app.close()
     finally:
-        app.close()
+        if vis is not None:
+            vis.close()
     ok = [r for r in results if r is not None]
     print(json.dumps({
         "frames": len(results),
@@ -464,18 +481,23 @@ def _cmd_kitti_eval(args) -> int:
                              rpe)
     from .io.poses import read_kitti_poses
 
-    if args.plot:
-        raise NotImplementedError(
-            "kitti-eval --plot: the plots (eval/plots.py) are not ported "
-            "yet (ROADMAP Q1 #14)")
     gt = read_kitti_poses(args.ground_truth)
     res = read_kitti_poses(args.result)
     n = min(len(gt), len(res))
-    summary = average_errors(calc_sequence_errors(gt[:n], res[:n]))
+    errors = calc_sequence_errors(gt[:n], res[:n])
+    summary = average_errors(errors)
     summary["ate_rmse"] = ate_rmse(gt[:n], res[:n], align=args.align)
     r = rpe(gt[:n], res[:n])
     summary["rpe_trans"] = r["rpe_trans_rmse_m"]
     summary["rpe_rot"] = r["rpe_rot_rmse_deg"]
+    if args.plot:
+        from .eval.plots import plot_segment_errors, plot_trajectories
+
+        plot_trajectories(args.plot, gt[:n], res[:n])
+        if errors:
+            plot_segment_errors(args.plot.replace(".png", "_err.png"),
+                                errors)
+        summary["plot"] = args.plot
     print(json.dumps(summary, indent=2))
     return 0
 
@@ -540,6 +562,50 @@ def _cmd_oxts_to_kitti(args) -> int:
     return 0
 
 
+def _cmd_draw(args) -> int:
+    from .io.pcd import read_cloud
+    from .io.vtk import write_vtk_lines
+    from .utils.drawing import normals_segments, octree_wireframe
+
+    pts, _ = read_cloud(args.infile)
+    if args.mode == "octree":
+        segs = octree_wireframe(pts, args.resolution)
+    else:
+        from .cloud import Cloud
+        from .ops import estimate_normals
+        from .pipeline.app import check_device
+
+        dev = check_device(args.device, "draw")
+        cap = 1 << max(int(np.ceil(np.log2(max(len(pts), 2)))), 6)
+        cloud = Cloud.from_numpy(pts, capacity=cap, device=dev)
+        normals, _, _ = estimate_normals(cloud.points, cloud.mask, k=12)
+        m = cloud.mask.cpu().numpy()
+        segs = normals_segments(cloud.points.cpu().numpy()[m],
+                                normals.cpu().numpy()[m],
+                                scale=args.scale, stride=args.stride)
+    write_vtk_lines(args.outfile, segs)
+    print(json.dumps({"points": len(pts), "segments": int(len(segs)),
+                      "mode": args.mode, "output": args.outfile}))
+    return 0
+
+
+def _cmd_vtk_to_octree(args) -> int:
+    from .io.pcd import write_pcd
+    from .io.vtk import read_vtk, write_vtk
+    from .utils.visualizer import occupied_cells
+
+    pts = read_vtk(args.infile)
+    cells = occupied_cells(pts, args.resolution)
+    if args.outfile.endswith(".vtk"):
+        write_vtk(args.outfile, cells)
+    else:
+        write_pcd(args.outfile, cells)
+    print(json.dumps({"points": len(pts), "occupied_cells": len(cells),
+                      "resolution": args.resolution,
+                      "output": args.outfile}))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="aicp_mapping_tpu_torch", description=__doc__,
@@ -593,7 +659,8 @@ def build_parser() -> argparse.ArgumentParser:
     rp.add_argument("--config", help="AICP YAML config")
     rp.add_argument("--output-poses", help="write KITTI-format trajectory")
     rp.add_argument("--live-viz", type=int, default=None, metavar="PORT",
-                    help="live viewer (not ported: raises)")
+                    help="stream clouds/poses/metrics to TCP viewers "
+                         "(0 = ephemeral port; utils.live_viz protocol)")
     rp.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
     rp.set_defaults(func=_cmd_replay)
@@ -662,7 +729,7 @@ def build_parser() -> argparse.ArgumentParser:
     k.add_argument("result")
     k.add_argument("--align", action="store_true",
                    help="Umeyama-align before ATE")
-    k.add_argument("--plot", help="trajectory plot PNG (not ported: raises)")
+    k.add_argument("--plot", help="write a trajectory plot PNG here")
     k.set_defaults(func=_cmd_kitti_eval)
 
     g = sub.add_parser("remove-ground", help="progressive morphological filter")
@@ -699,6 +766,29 @@ def build_parser() -> argparse.ArgumentParser:
     cc.add_argument("--voxel", type=float, default=0.0,
                     help="optional voxel downsample of the result")
     cc.set_defaults(func=_cmd_concat)
+
+    dr = sub.add_parser("draw", help="cloud -> octree wireframe / normal "
+                                     "whiskers as VTK lines")
+    dr.add_argument("infile", help=".pcd/.bin cloud")
+    dr.add_argument("outfile", help=".vtk LINES output")
+    dr.add_argument("--mode", choices=("octree", "normals"),
+                    default="octree")
+    dr.add_argument("--resolution", type=float, default=0.2,
+                    help="octree cell size (octree mode)")
+    dr.add_argument("--scale", type=float, default=0.2,
+                    help="whisker length (normals mode)")
+    dr.add_argument("--stride", type=int, default=1,
+                    help="subsample normals by this stride")
+    dr.add_argument("--device", default="cuda",
+                    help="torch device of the normals (default: the card)")
+    dr.set_defaults(func=_cmd_draw)
+
+    vo = sub.add_parser("vtk-to-octree",
+                        help="VTK cloud -> occupancy-voxel cell cloud")
+    vo.add_argument("infile")
+    vo.add_argument("outfile", help=".pcd or .vtk output of cell centers")
+    vo.add_argument("--resolution", type=float, default=0.2)
+    vo.set_defaults(func=_cmd_vtk_to_octree)
     return p
 
 

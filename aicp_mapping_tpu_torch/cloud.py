@@ -111,6 +111,32 @@ class Cloud:
         return pts[self.mask.cpu().numpy()]
 
 
+@dataclasses.dataclass(frozen=True)
+class NormalCloud:
+    """A cloud with per-point normals and curvature: points and normals
+    (N, 3) float32, curvature (N,), mask (N,) bool."""
+
+    points: torch.Tensor
+    normals: torch.Tensor
+    curvature: torch.Tensor
+    mask: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.points.shape[0]
+
+    def count(self) -> torch.Tensor:
+        return self.mask.sum()
+
+    def as_cloud(self) -> Cloud:
+        return Cloud(self.points, self.mask)
+
+    def transform(self, T: torch.Tensor) -> "NormalCloud":
+        return NormalCloud(se3.transform_points(T, self.points),
+                           se3.rotate_vectors(T, self.normals),
+                           self.curvature, self.mask)
+
+
 def repin_roll_pitch_np(corrected: np.ndarray,
                         odom: np.ndarray) -> np.ndarray:
     """Replace roll/pitch of `corrected` with odometry's, keeping yaw and
@@ -196,6 +222,9 @@ class AlignedCloudsGraph:
     @property
     def n_clouds(self) -> int:
         return len(self.clouds)
+
+    def current_reference(self) -> AlignedCloud:
+        return self.clouds[self.current_reference_id]
 
     def last(self) -> AlignedCloud:
         return self.clouds[-1]

@@ -15,9 +15,50 @@ def identity(dtype=torch.float32, device=None) -> torch.Tensor:
     return torch.eye(4, dtype=dtype, device=device)
 
 
+def quat_identity(dtype=torch.float32, device=None) -> torch.Tensor:
+    return torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dtype, device=device)
+
+
 def quat_normalize(q: torch.Tensor) -> torch.Tensor:
     return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True),
                            min=_EPS)
+
+
+def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product of (..., 4) quaternions (w, x, y, z)."""
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack([
+        aw * bw - ax * bx - ay * by - az * bz,
+        aw * bx + ax * bw + ay * bz - az * by,
+        aw * by - ax * bz + ay * bw + az * bx,
+        aw * bz + ax * by - ay * bx + az * bw,
+    ], dim=-1)
+
+
+def quat_to_euler(q: torch.Tensor):
+    """Quaternion -> (roll, pitch, yaw), the reference's formulas."""
+    q0, q1, q2, q3 = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    roll = torch.atan2(2 * (q0 * q1 + q2 * q3), 1 - 2 * (q1 * q1 + q2 * q2))
+    pitch = torch.asin(torch.clamp(2 * (q0 * q2 - q3 * q1), -1.0, 1.0))
+    yaw = torch.atan2(2 * (q0 * q3 + q1 * q2), 1 - 2 * (q2 * q2 + q3 * q3))
+    return roll, pitch, yaw
+
+
+def euler_to_quat(roll, pitch, yaw) -> torch.Tensor:
+    """(roll, pitch, yaw) -> unit quaternion (w, x, y, z); angles that are
+    not tensors are taken as float32, as JAX takes them."""
+    roll, pitch, yaw = (a if isinstance(a, torch.Tensor)
+                        else torch.as_tensor(a, dtype=torch.float32)
+                        for a in (roll, pitch, yaw))
+    sy, cy = torch.sin(yaw * 0.5), torch.cos(yaw * 0.5)
+    sp, cp = torch.sin(pitch * 0.5), torch.cos(pitch * 0.5)
+    sr, cr = torch.sin(roll * 0.5), torch.cos(roll * 0.5)
+    w = cr * cp * cy + sr * sp * sy
+    x = sr * cp * cy - cr * sp * sy
+    y = cr * sp * cy + sr * cp * sy
+    z = cr * cp * sy - sr * sp * cy
+    return quat_normalize(torch.stack([w, x, y, z], dim=-1))
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -191,3 +232,20 @@ def adjoint(T: torch.Tensor) -> torch.Tensor:
     top = torch.cat([R, tR], dim=-1)
     bottom = torch.cat([torch.zeros_like(R), R], dim=-1)
     return torch.cat([top, bottom], dim=-2)
+
+
+def repin_roll_pitch(corrected: torch.Tensor,
+                     odom: torch.Tensor) -> torch.Tensor:
+    """Replace the roll and pitch of `corrected` with odometry's, keeping
+    its yaw and translation (gravity re-pinning; `cloud.repin_roll_pitch_np`
+    is the host twin the App uses)."""
+    r_odom, p_odom, _ = quat_to_euler(matrix_to_quat(rotation(odom)))
+    _, _, y_corr = quat_to_euler(matrix_to_quat(rotation(corrected)))
+    q_fixed = euler_to_quat(r_odom, p_odom, y_corr)
+    return make_transform(quat_to_matrix(q_fixed), translation(corrected))
+
+
+def rotation_angle_deg(T: torch.Tensor) -> torch.Tensor:
+    """Geodesic rotation angle of a transform, degrees."""
+    return torch.linalg.norm(so3_log(rotation(T)), dim=-1) * (180.0
+                                                              / torch.pi)

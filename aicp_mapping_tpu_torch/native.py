@@ -21,6 +21,10 @@ package's C++ runtime, `native/src/runtime.cpp`, is not loaded).
   sequence through `io.pcd.read_cloud`, padded to a fixed capacity (a
   cloud over it is cut by the runtime's even stride); unreadable files are
   skipped.
+- `read_cloud` and `write_pcd` (`binary` False, True or "compressed"):
+  the cloud file IO under the JAX package's names here, served by
+  `io.pcd`. JAX's `load` and `available` return the C++ library's
+  handle; with no C++ runtime here they have no counterpart.
 """
 from __future__ import annotations
 
@@ -29,7 +33,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
-from .io.pcd import read_cloud
+from .io.pcd import read_cloud, write_pcd  # noqa: F401
 
 _AXIS_BITS = 21
 _AXIS_OFFSET = 1 << (_AXIS_BITS - 1)

@@ -27,7 +27,18 @@ modes (a prior map or an external `reference_provider` such as
 `parallel.ShardedMapLocalizer` with the overlap pinned at 50, the built
 map and `go_back_to_map`, `load_map_from_file`,
 `merge_aligned_clouds_to_map`), `debug_dir` PCD dumps, `correct_pose` and
-`inject_correction`. There is no visualizer (ROADMAP Q1 #14).
+`inject_correction`.
+
+A visualizer sink (`utils.visualizer`) gets what the JAX App publishes,
+at the same points and in frame order: the bootstrap cloud, pose and map;
+each finalized frame's metrics; the poses, thinned to one per metre of
+travel; a new reference cloud and the map, read to the host only when the
+sink is not a `NullVisualizer`. Those reads run in finalize, on whichever
+thread finalizes, after the frame's scalars event (`_Scalars`) has been
+waited on, so they go on a stream of their own and wait for nothing
+dispatched since. `timing` (`utils.timing.TimingUtils`) records the
+scalar wait ("frameStep", synchronous finalize) and the host tail
+("fullLoop").
 """
 from __future__ import annotations
 
@@ -46,6 +57,8 @@ from ..cloud import AlignedCloud, AlignedCloudsGraph, Cloud
 from ..io.pcd import write_pcd
 from ..ops.normals import radius_normals
 from ..ops.voxel import crop_box
+from ..utils.timing import TimingUtils
+from ..utils.visualizer import NullVisualizer, Visualizer
 from .config import PipelineConfig
 from .fused import _pre_voxelized, _prefilter, make_app_frame_step
 
@@ -124,12 +137,14 @@ class App:
     def __init__(self, config: PipelineConfig, device="cuda",
                  reference_provider=None,
                  classifier: Optional[RiskClassifier] = None,
-                 visualizer=None):
-        if visualizer is not None:
-            raise NotImplementedError(
-                "App(visualizer=...): the visualizers are ROADMAP Q1 #14")
+                 visualizer: Optional[Visualizer] = None):
         self.device = check_device(device, "App")
         self.cfg = config
+        self.vis = visualizer or NullVisualizer()
+        self.timing = TimingUtils(verbose=config.verbose)
+        # the stream of the sink's reads of finalized frames' clouds
+        self._read_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
         # Optional external reference for prior-map localization: any
         # object with provide_reference(pose_est) -> (points, mask, normals)
         # tensors on this App's device (parallel.ShardedMapLocalizer).
@@ -200,15 +215,26 @@ class App:
     @property
     def aligned_map_np(self) -> np.ndarray:
         """The accumulated aligned map (the reference clouds), as numpy."""
-        if self._map_pending:
-            self._map_parts.extend(c.to_numpy() for c in self._map_pending)
-            self._map_pending.clear()
-            self._map_np = None
-        if self._map_np is None:
-            self._map_np = (np.concatenate(self._map_parts)
-                            if self._map_parts
-                            else np.zeros((0, 3), np.float32))
-        return self._map_np
+        with self._state_lock:
+            if self._map_pending:
+                self._map_parts.extend(self._finalized_np(c)
+                                       for c in self._map_pending)
+                self._map_pending.clear()
+                self._map_np = None
+            if self._map_np is None:
+                self._map_np = (np.concatenate(self._map_parts)
+                                if self._map_parts
+                                else np.zeros((0, 3), np.float32))
+            return self._map_np
+
+    def _finalized_np(self, cloud: Cloud) -> np.ndarray:
+        """A finalized frame's cloud as numpy. Finalize has waited on the
+        frame's scalars event, so its work is done: the copy runs on the
+        read stream and does not wait for frames dispatched since."""
+        if self._read_stream is None:
+            return cloud.to_numpy()
+        with torch.cuda.stream(self._read_stream):
+            return cloud.to_numpy()
 
     @aligned_map_np.setter
     def aligned_map_np(self, value) -> None:
@@ -444,12 +470,22 @@ class App:
     def _finalize_batch(self, batch: list) -> list[FrameResult]:
         """Finalize `batch` on this thread: wait for its scalars, then the
         bookkeeping of each frame in order."""
-        hosts = [p["scalars"].get() for p in batch]
+        if not batch:
+            return []
+        with self.timing.section("frameStep"):
+            hosts = [p["scalars"].get() for p in batch]
         return [self._finalize(p, h) for p, h in zip(batch, hosts)]
 
     def _finalize(self, pending: dict, host: np.ndarray) -> FrameResult:
-        """The host tail of a frame: gates, graph bookkeeping, maps."""
+        with self.timing.section("fullLoop"):
+            return self._finalize_frame(pending, host)
+
+    def _finalize_frame(self, pending: dict,
+                        host: np.ndarray) -> FrameResult:
+        """The host tail of a frame: gates, graph bookkeeping, maps and
+        the sink's publishes."""
         cfg = self.cfg
+        vis = self.vis
         cloud: AlignedCloud = pending["cloud"]
         out = pending["out"]
         ref_id = pending["ref_id"]
@@ -473,6 +509,11 @@ class App:
         read_f = Cloud(out.filtered_points, out.filtered_mask)
         if cfg.debug_dir:
             self._dump_debug_cloud(read_f, "prefiltered")
+        if cfg.failure_prediction_mode:
+            vis.publish_metric("fov_overlap", fov, cloud.utime)
+            vis.publish_metric("alignability", align, cloud.utime)
+            vis.publish_metric("alignment_risk", risk, cloud.utime)
+        vis.publish_metric("octree_overlap", overlap, cloud.utime)
 
         if not accepted:
             # wrong alignment: frame dropped; its speculative reference is
@@ -533,15 +574,32 @@ class App:
         self.total_correction = new_total
         last = self.graph.last()
         n_prev = self.graph.n_clouds - 1
+        rel = np.linalg.inv(vis.get_path()[-1]) @ last.corrected_pose
+        if np.linalg.norm(rel[:3, 3]) > 1.0:     # one pose marker a metre
+            vis.publish_pose(last.corrected_pose, 0, "", cloud.utime)
+            vis.publish_prior_pose(last.prior_pose, 0, "", cloud.utime)
+            vis.publish_odom_pose(last.odom_pose, 0, "", cloud.utime)
+            vis.publish_odom_to_map(np.linalg.inv(
+                last.corrected_pose @ np.linalg.inv(last.odom_pose)),
+                cloud.utime)
         merging = (cfg.localize_against_prior_map
                    and cfg.merge_aligned_clouds_to_map
                    and self.prior_map is not None)
         if last.is_reference:
             self._map_pending.append(last.cloud)
             self._map_np = None
-        elif merging and n_prev % cfg.reference_update_frequency == 0:
-            self.prior_map = self._map_cloud(np.concatenate(
-                [self.prior_map.to_numpy(), last.cloud.to_numpy()]))
+            if not isinstance(vis, NullVisualizer):
+                # the map's materialization reads the new reference once;
+                # it is the map's last part
+                map_np = self.aligned_map_np
+                vis.publish_cloud(self._map_parts[-1], 0, "", cloud.utime)
+                vis.publish_map(map_np, cloud.utime, 1)
+        elif (cfg.localize_against_prior_map
+              and n_prev % cfg.reference_update_frequency == 0):
+            vis.publish_pose(last.corrected_pose, 0, "", cloud.utime)
+            if merging:
+                self.prior_map = self._map_cloud(np.concatenate(
+                    [self.prior_map.to_numpy(), last.cloud.to_numpy()]))
         if merging and n_prev % 30 == 0:
             # amortized prior-map re-filter every 30 clouds
             self.prior_map = self._map_cloud(self.filter_cloud(
@@ -566,6 +624,9 @@ class App:
         self._ref_pose = np.asarray(cloud.corrected_pose)
         self._ref_gen += 1
         self.aligned_map_np = filtered.to_numpy()
+        self.vis.publish_cloud(self.aligned_map_np, 0, "", cloud.utime)
+        self.vis.publish_pose(cloud.corrected_pose, 0, "", cloud.utime)
+        self.vis.publish_map(self.aligned_map_np, cloud.utime, 1)
         return self._record(FrameResult(
             utime=cloud.utime, reference_id=0, reading_id=0,
             octree_overlap=-1.0, fov_overlap=-1.0, alignability=-1.0,

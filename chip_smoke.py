@@ -83,7 +83,23 @@ launch counts set to 0 just before it and read just after:
 - pairs and checkpoints (`run_pairs_and_checkpoints`): `run_pairwise` of
   3 room clouds at capacity 8,192 (K3 normals, K1 ICP), the `classifier
   --train/--test` CLI and a checkpointed bench run resumed on the card
-  (bit for bit) and on the CPU, each against the CPU.
+  (bit for bit) and on the CPU, each against the CPU;
+- the visualizer sinks and the last modules (`run_viz`): (1) the bench
+  point with failure prediction through an App with a
+  `RecordingVisualizer` and one without, in turns, their frames bit for
+  bit, each frame's publishes against a CPU App's with its own sink
+  (poses 0.05 m, cloud and map rows 1 %, metrics the golden tolerances),
+  ms/frame and device-to-host copies per frame (`torch.profiler`) of
+  both; (1b) the same pair pipelined at depth 4 with async finalize (the
+  sink's reads on the finalizer thread), frames bit for bit, publishes in
+  frame order; (2) a `FileVisualizer`'s PCDs read back; (3)
+  `cli.main(["replay", ..., "--live-viz", PORT])` over a recorded
+  sequence with a viewer thread, which must receive cloud, map, pose and
+  metric frames; (4) `draw` (both modes) and `vtk-to-octree`, normals
+  against `--device cpu`; (5) the planar 2D chain (K1 at 1,024^2) on
+  `synthetic_room_scan` and the shipped `data/scan_0*.csv` against the
+  CPU and the truth; (6) `tools/drive_demo.py`'s flow with its
+  assertions.
 
 Phase 3 holds K1 and K2 at the KITTI widths too (16,384^2, 2,048 x
 16,384; 32,768), and holds K1 and K5 (both modes) to their twins on a scene of
@@ -2080,6 +2096,444 @@ def run_pairs_and_checkpoints(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
+# The visualizer sinks, the live viewer, drawing, planar IO and the demo
+# ---------------------------------------------------------------------------
+
+VIZ_FRAMES = 5        # bench scans through the sink comparison
+VIZ_PROFILED = 2      # further scans under torch.profiler, each App
+VIZ_KERNELS = ("nn_payload", "banded_moments", "radius_moments")
+VIZ_POSE_TOL = 0.05   # m, the golden corrected_t
+VIZ_SIZE_SHARE = 0.01  # of a cloud's or a map's rows: the hough order
+
+
+def dtoh_per_frame(torch, step, frames: int) -> float:
+    """Device-to-host copies per call of `step` under torch.profiler."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            step()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        events = cells()._device_events(path)
+    assert events, "the profiler recorded no device events"
+    return sum(1 for cat, name, _, _ in events
+               if cat == "gpu_memcpy" and "DtoH" in name) / frames
+
+
+def frame_publishes(vis, utime: int) -> dict:
+    """Every publish of one frame in a RecordingVisualizer, by hook."""
+    out = {hook: [a for u, a in getattr(vis, hook) if u == utime]
+           for hook in ("clouds", "maps", "poses", "prior_poses",
+                        "odom_poses", "odom_to_map")}
+    out.update({name: [v for u, v in series if u == utime]
+                for name, series in vis.metrics.items()})
+    return out
+
+
+def publishes_agree(got: dict, want: dict, what: str,
+                    clouds: bool = True) -> None:
+    """One frame's publishes on the card against the CPU App's: the same
+    hooks and metric names, poses within 0.05 m, clouds and maps within 1 %
+    of their rows, metrics within the golden tolerances."""
+    assert got.keys() == want.keys(), (what, got.keys(), want.keys())
+    tol = {"octree_overlap": TOL_OVERLAP, "fov_overlap": TOL_RISK[
+        "fov_overlap"], "alignability": TOL_RISK["alignability"],
+        "alignment_risk": TOL_RISK["risk"]}
+    for hook, series in got.items():
+        if hook in ("clouds", "maps") and not clouds:
+            continue
+        assert len(series) == len(want[hook]), (what, hook)
+        for a, b in zip(series, want[hook]):
+            if hook in tol:
+                assert abs(a - b) <= tol[hook], (what, hook, a, b)
+            elif hook in ("clouds", "maps"):
+                assert abs(len(a) - len(b)) <= VIZ_SIZE_SHARE * len(b), (
+                    what, hook, len(a), len(b))
+            else:
+                assert np.abs(a[:3, 3] - b[:3, 3]).max() <= VIZ_POSE_TOL, (
+                    what, hook, a, b)
+
+
+def viz_bench(torch) -> dict:
+    """(1) The bench point with failure prediction and the shipped
+    classifier, a reference update every 2 frames: one App with a
+    RecordingVisualizer and one with none on the card, frame by frame in
+    turns (which goes first alternates), their results equal bit for bit;
+    each frame's publishes against a CPU App's (with its own sink, started
+    from the card App's state); ms/frame of both (frames 2 on, each
+    synchronised); then device-to-host copies per frame of both under
+    torch.profiler."""
+    from aicp_mapping_tpu_torch import AlignedCloud, App, Cloud
+    from aicp_mapping_tpu_torch.convert import (app_state_from_numpy,
+                                                app_state_to_numpy)
+    from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
+    from aicp_mapping_tpu_torch.utils.visualizer import RecordingVisualizer
+
+    cfg = cells().bench_config()
+    cfg.failure_prediction_mode = True
+    cfg.classifier_path = CLASSIFIER
+    # a reference update every 2 frames: the sink then reads the new
+    # reference cloud and the map on the card in the compared and in the
+    # profiled frames
+    cfg.reference_update_frequency = 2
+    items, _ = synthetic_sequence(n_frames=VIZ_FRAMES + VIZ_PROFILED,
+                                  **cells().SCAN_ARGS)
+    vis, cpu_vis = RecordingVisualizer(), RecordingVisualizer()
+    apps = {"sink": App(cfg, device="cuda", visualizer=vis),
+            "none": App(cfg, device="cuda")}
+    cpu = App(cfg, device="cpu", visualizer=cpu_vis)
+    ms = {k: [] for k in apps}
+    for i, (utime, pts, pose) in enumerate(items[:VIZ_FRAMES]):
+        if i > 0:
+            app_state_from_numpy(cpu, **app_state_to_numpy(apps["none"]))
+        res = {}
+        turns = list(apps.items())       # in turns: sink first every 2nd
+        for name, app in turns if i % 2 == 0 else turns[::-1]:
+            cloud = Cloud.from_numpy(pts, capacity=cfg.raw_capacity)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[name] = app.process_cloud(AlignedCloud.create(utime, cloud,
+                                                              pose))
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+        for k, v in vars(res["sink"]).items():
+            w = getattr(res["none"], k)
+            assert (np.array_equal(v, w) if isinstance(v, np.ndarray)
+                    else v == w), (i, k, v, w)
+        rc = cpu.process_cloud(AlignedCloud.create(utime, Cloud.from_numpy(
+            pts, capacity=cfg.raw_capacity), pose))
+        rg = res["sink"]
+        # a risk at the threshold may gate on one device only: then the
+        # reference (cloud, map) publishes part by design
+        marginal = (rg.registered != rc.registered and max(
+            abs(rg.risk - cfg.risk_threshold),
+            abs(rc.risk - cfg.risk_threshold)) <= TOL_RISK["risk"])
+        published = frame_publishes(vis, utime)
+        publishes_agree(published, frame_publishes(cpu_vis, utime),
+                        f"viz frame {i}", clouds=not marginal)
+        log(f"viz frame {i}: sink {ms['sink'][-1]:.1f} ms, none "
+            f"{ms['none'][-1]:.1f} ms; registered {rg.registered} (cpu "
+            f"{rc.registered}), risk {rg.risk:.4f} (cpu {rc.risk:.4f}); "
+            f"publishes {[len(v) for v in published.values()]}"
+            f"{' (risk at the threshold)' if marginal else ''}")
+    assert len(vis.clouds) >= 2 and len(vis.maps) >= 2, vis.clouds
+    assert sorted(vis.metrics) == ["alignability", "alignment_risk",
+                                   "fov_overlap", "octree_overlap"]
+    reads = {}
+    for name, app in apps.items():
+        def step(frames=iter(items[VIZ_FRAMES:]), app=app):
+            utime, pts, pose = next(frames)
+            app.process_cloud(AlignedCloud.create(utime, Cloud.from_numpy(
+                pts, capacity=cfg.raw_capacity), pose))
+        reads[name] = dtoh_per_frame(torch, step, VIZ_PROFILED)
+    for a, b in zip(apps["sink"].frames, apps["none"].frames):
+        assert np.array_equal(a.corrected_pose, b.corrected_pose)
+        assert (a.risk, a.octree_overlap) == (b.risk, b.octree_overlap)
+    cpu.close()
+    return dict(sink_ms=float(np.mean(ms["sink"][2:])),
+                none_ms=float(np.mean(ms["none"][2:])), reads=reads)
+
+
+def viz_pipelined(torch) -> int:
+    """(1b) The sink under pipelining with async finalize, where its reads
+    of the new reference cloud and the map run on the finalizer thread:
+    the bench point's first 7 frames at depth 4 (a reference update every
+    2 frames) through an App with a RecordingVisualizer and one without,
+    their results bit for bit, every frame accepted (a rejection inside
+    the window would make results depend on thread timing), the publishes
+    in frame order, one cloud per reference."""
+    from aicp_mapping_tpu_torch import App
+    from aicp_mapping_tpu_torch.pipeline import SequenceRunner
+    from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
+    from aicp_mapping_tpu_torch.utils.visualizer import RecordingVisualizer
+
+    cfg = cells().bench_config()
+    cfg.pipeline_depth = 4
+    cfg.async_finalize = True
+    cfg.reference_update_frequency = 2
+    items, _ = synthetic_sequence(n_frames=VIZ_FRAMES + VIZ_PROFILED,
+                                  **cells().SCAN_ARGS)
+    vis = RecordingVisualizer()
+    runs = {}
+    for name, sink in (("sink", vis), ("none", None)):
+        app = App(cfg, device="cuda", visualizer=sink)
+        try:
+            runs[name] = SequenceRunner(app, pipelined=True).run_clouds(items)
+        finally:
+            app.close()
+    assert len(runs["sink"]) == len(runs["none"]) == len(items)
+    for a, b in zip(runs["sink"], runs["none"]):
+        for k, v in vars(a).items():
+            w = getattr(b, k)
+            assert (np.array_equal(v, w) if isinstance(v, np.ndarray)
+                    else v == w), (k, v, w)
+    assert all(r.accepted for r in runs["sink"]), runs["sink"]
+    utimes = [u for u, _ in vis.metrics["octree_overlap"]]
+    assert utimes == [r.utime for r in runs["sink"][1:]], utimes
+    for series in (vis.clouds, vis.maps, vis.poses):
+        assert [u for u, _ in series] == sorted(u for u, _ in series)
+    assert len(vis.clouds) == len(vis.maps) == 1 + (len(items) - 1) // 2
+    return len(vis.clouds)
+
+
+def viz_file_sink(torch, d: str) -> int:
+    """(2) FileVisualizer through an App on the card (the golden
+    scenario's first 6 frames, a reference update every 2): each published
+    cloud and the last map read back from their PCD files."""
+    from aicp_mapping_tpu_torch import (AlignedCloud, App, Cloud,
+                                        PipelineConfig)
+    from aicp_mapping_tpu_torch.io.pcd import read_pcd
+    from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
+    from aicp_mapping_tpu_torch.utils.visualizer import FileVisualizer
+
+    cfg = PipelineConfig(raw_capacity=8192, downsample_capacity=4096,
+                         filtered_capacity=2048, min_cluster_size=20,
+                         reference_update_frequency=2)
+    vis = FileVisualizer(os.path.join(d, "file_sink"))
+    app = App(cfg, device="cuda", visualizer=vis)
+    items, _ = synthetic_sequence(n_frames=6, n_points=5000, seed=11)
+    for utime, pts, pose in items:
+        app.process_cloud(AlignedCloud.create(utime, Cloud.from_numpy(
+            pts, capacity=cfg.raw_capacity), pose))
+    assert len(vis.clouds) >= 3, len(vis.clouds)
+    for utime, pts in vis.clouds:
+        got, _ = read_pcd(os.path.join(vis.directory,
+                                       f"cloud_0_{utime}.pcd"))
+        assert np.array_equal(got, pts), utime
+    got, _ = read_pcd(os.path.join(vis.directory, "aligned_map.pcd"))
+    assert np.array_equal(got, vis.maps[-1][1])
+    assert np.array_equal(got, app.aligned_map_np)
+    return len(vis.clouds)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def viz_live(torch, d: str) -> dict:
+    """(3) `replay --live-viz PORT` on the card over a recorded sequence
+    (the golden scenario's 8 frames, a reference update every 2), with a
+    viewer thread that connects as soon as the command listens."""
+    import socket
+    import threading
+
+    from aicp_mapping_tpu_torch.pipeline import SequenceRecorder
+    from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
+    from aicp_mapping_tpu_torch.utils.live_viz import read_frames
+
+    seq = os.path.join(d, "seq")
+    rec = SequenceRecorder(seq)
+    for utime, pts, pose in synthetic_sequence(n_frames=8, n_points=5000,
+                                               seed=11)[0]:
+        rec.record(utime, pts, pose)
+    yaml = os.path.join(d, "live.yaml")
+    with open(yaml, "w") as f:
+        f.write("AICP:\n  Pipeline:\n    rawCapacity: 8192\n"
+                "    downsampleCapacity: 4096\n    filteredCapacity: 2048\n"
+                "    minClusterSize: 20\n    referenceUpdateFrequency: 2\n")
+    port = free_port()
+    got: dict = {}
+
+    def viewer():
+        deadline = time.time() + 120
+        while True:
+            try:
+                sock = socket.create_connection(("127.0.0.1", port),
+                                                timeout=120)
+                break
+            except OSError:
+                if time.time() > deadline:
+                    raise
+                time.sleep(0.002)
+        with sock:
+            for h, a in read_frames(sock):
+                got[h["type"]] = got.get(h["type"], 0) + 1
+
+    th = threading.Thread(target=viewer, daemon=True)
+    th.start()
+    summary = cli_json(["replay", seq, "--config", yaml, "--live-viz",
+                        str(port), "--device", "cuda"])
+    th.join(timeout=30)
+    assert not th.is_alive(), "the viewer never saw the stream end"
+    assert summary["frames"] == 8 and summary["accepted"] >= 1, summary
+    assert {"cloud", "map", "pose", "metric"} <= set(got), got
+    return got
+
+
+def viz_draw(torch, d: str) -> dict:
+    """(4) `draw` (both modes) and `vtk-to-octree` on the card against
+    `--device cpu`: the octree outputs byte for byte; the normal whiskers
+    from the same points, their directions within 1e-4 of the CPU's up to
+    sign for >= 99 % of the points."""
+    from aicp_mapping_tpu_torch.io.pcd import write_pcd
+    from aicp_mapping_tpu_torch.io.vtk import read_vtk, write_vtk
+    from aicp_mapping_tpu_torch.tools.synthetic import room_cloud
+    from aicp_mapping_tpu_torch.utils.visualizer import occupied_cells
+
+    pts = room_cloud(n=8192, size=12.0, seed=4, noise=0.01)
+    cloud = os.path.join(d, "room.pcd")
+    write_pcd(cloud, pts)
+    out = {}
+    for key, dev in (("card", "cuda"), ("cpu", "cpu")):
+        out[key] = os.path.join(d, f"normals_{key}.vtk")
+        sync(torch)
+        t0 = time.perf_counter()
+        cli_json(["draw", cloud, out[key], "--mode", "normals",
+                  "--device", dev])
+        out[key + "_s"] = time.perf_counter() - t0
+    got = read_vtk(out["card"]).reshape(-1, 2, 3)
+    want = read_vtk(out["cpu"]).reshape(-1, 2, 3)
+    assert got.shape == want.shape == (len(pts), 2, 3)
+    assert np.array_equal(got[:, 0], want[:, 0])
+    dg, dw = got[:, 1] - got[:, 0], want[:, 1] - want[:, 0]
+    off = np.minimum(np.abs(dg - dw).max(1), np.abs(dg + dw).max(1))
+    share = float((off <= 0.2 * 1e-4 + 2e-6).mean())
+    assert share >= 0.99, share
+    octree = cli_json(["draw", cloud, os.path.join(d, "octree.vtk")])
+    assert octree["segments"] == 12 * len(occupied_cells(pts, 0.2))
+    src = os.path.join(d, "room.vtk")
+    write_vtk(src, pts, binary=True)
+    cells_info = cli_json(["vtk-to-octree", src,
+                           os.path.join(d, "cells.vtk"), "--resolution",
+                           "0.5"])
+    assert np.array_equal(read_vtk(os.path.join(d, "cells.vtk")),
+                          occupied_cells(pts, 0.5))
+    return dict(share=share, max_off=float(off.max()),
+                card_s=out["card_s"], cpu_s=out["cpu_s"],
+                cells=cells_info["occupied_cells"])
+
+
+def viz_planar(torch) -> list:
+    """(5) The planar 2D chain (configs/icp/icp_2d_testing.yaml, padded to
+    1,024 points, K1 at 1,024^2) on the card against the CPU (T within 2 mm
+    and 0.05 deg): tests/test_chain.py's pair of synthetic room scans,
+    recovered to 3 cm / 0.01 rad of the truth as that test asserts, and
+    each shipped scan data/scan_0*.csv against itself moved by 0.12 m,
+    -0.08 m and 2 deg (its distance from the truth printed: how far the
+    chain gets is the algorithm's, held to JAX's on the CPU by
+    tests/test_torch_icp.py)."""
+    import glob
+
+    from aicp_mapping_tpu_torch.io.planar import (planar_to_cloud,
+                                                  read_planar_csv,
+                                                  synthetic_room_scan)
+    from aicp_mapping_tpu_torch.pipeline.config import load_icp_chain_yaml
+    from aicp_mapping_tpu_torch.registration import point_to_plane_icp
+
+    cfg = load_icp_chain_yaml(os.path.join(
+        ROOT, "configs", "icp", "icp_2d_testing.yaml"))[0]
+
+    def angle_deg(A, B) -> float:
+        """The angle between two rotations, from |A - B|_F = 2 sqrt(2)
+        sin(angle / 2) (precise at small angles)."""
+        f = np.linalg.norm(A.astype(np.float64) - B) / (2 * np.sqrt(2))
+        return float(np.degrees(2 * np.arcsin(min(f, 1.0))))
+
+    def planar_T(x, y, theta):
+        T = np.eye(4, dtype=np.float32)
+        c, s = np.cos(theta), np.sin(theta)
+        T[:2, :2] = [[c, -s], [s, c]]
+        T[:2, 3] = [x, y]
+        return T
+
+    def pad(p2):
+        out = np.zeros((1024, 3), np.float32)
+        pts = planar_to_cloud(p2)
+        assert len(pts) <= 1024, len(pts)
+        out[:len(pts)] = pts
+        return out, np.arange(1024) < len(pts)
+
+    def solve(read, ref, dev):
+        t = [torch.as_tensor(a, device=dev) for a in (*read, *ref)]
+        res = point_to_plane_icp(t[0], t[1], t[2],
+                                 torch.zeros(1024, 3, device=dev), t[3],
+                                 torch.eye(4, device=dev),
+                                 torch.tensor(cfg.trim_ratio, device=dev),
+                                 cfg)
+        return res.T.cpu().numpy()
+
+    pose_b = (0.25, -0.15, 0.06)
+    pairs = [("synthetic room", pad(synthetic_room_scan(
+        pose_b, n_beams=720, seed=1)), pad(synthetic_room_scan(
+            (0.0, 0.0, 0.0), n_beams=720, seed=0)), planar_T(*pose_b))]
+    move = planar_T(0.12, -0.08, np.radians(2.0))
+    for path in sorted(glob.glob(os.path.join(ROOT, "data",
+                                              "scan_0*.csv"))):
+        scan = read_planar_csv(path)
+        moved = scan @ move[:2, :2].T + move[:2, 3]
+        pairs.append((os.path.basename(path), pad(moved), pad(scan),
+                      np.linalg.inv(move)))
+    assert len(pairs) == 4, pairs
+    rows = []
+    for name, read, ref, T_gt in pairs:
+        Tg, Tc = solve(read, ref, "cuda"), solve(read, ref, "cpu")
+        dt = float(np.linalg.norm(Tg[:3, 3] - Tc[:3, 3]))
+        dr = angle_deg(Tg[:3, :3], Tc[:3, :3])
+        et = float(np.linalg.norm(Tg[:3, 3] - T_gt[:3, 3]))
+        er = angle_deg(Tg[:3, :3], T_gt[:3, :3])
+        assert dt <= 2e-3 and dr <= 0.05, (name, dt, dr)
+        if name == "synthetic room":
+            assert et < 0.03 and np.radians(er) < 0.01, (name, et, er)
+        rows.append((name, et, er, dt))
+    return rows
+
+
+def run_viz(torch) -> dict:
+    """The "viz" phase: the visualizer sinks at the bench point (1), the
+    file sink (2), `replay --live-viz` with a viewer (3), `draw` and
+    `vtk-to-octree` (4), the planar 2D chain (5) and `tools/drive_demo.py`'s
+    flow (6), all on the card."""
+    import tempfile
+
+    from aicp_mapping_tpu_torch.tools import drive_demo
+
+    t_phase = time.perf_counter()
+    out = viz_bench(torch)
+    log(f"viz (1) bench point with failure prediction ({gpu_line()}): "
+        f"{out['sink_ms']:.2f} ms/frame with a RecordingVisualizer, "
+        f"{out['none_ms']:.2f} without (frames 2-{VIZ_FRAMES - 1}), results "
+        f"bit for bit; device-to-host copies per frame "
+        f"{out['reads']['sink']:.1f} with the sink, "
+        f"{out['reads']['none']:.1f} without")
+    n = viz_pipelined(torch)
+    log(f"viz (1b) pipelined at depth 4 with async finalize: the sink's "
+        f"{n} cloud reads on the finalizer thread; frames bit for bit the "
+        "App's without a sink, publishes in frame order")
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
+        n = viz_file_sink(torch, d)
+        log(f"viz (2) FileVisualizer: {n} clouds and the map read back "
+            "equal from their PCD files")
+        got = viz_live(torch, d)
+        log(f"viz (3) replay --live-viz: the viewer received {got}")
+        draw = viz_draw(torch, d)
+        log(f"viz (4) draw --mode normals: {draw['share']:.4f} of the "
+            f"whiskers within 1e-4 of the CPU's (max {draw['max_off']:.3g}),"
+            f" card {draw['card_s']:.2f} s, CPU {draw['cpu_s']:.2f} s; "
+            f"octree and vtk-to-octree ({draw['cells']} cells) equal")
+    for name, et, er, dt in viz_planar(torch):
+        log(f"viz (5) 2D chain, {name}: {et * 1e3:.2f} mm and {er:.4f} deg "
+            f"from the truth, {dt * 1e3:.3f} mm from the CPU's T")
+    demo = drive_demo.run("cuda")
+    log(f"viz (6) drive_demo on the card: {len(demo['frames'])} frames "
+        f"accepted, corrected end {demo['corr_err'][-1] * 100:.1f} cm "
+        f"(odometry {demo['odom_err'][-1] * 100:.1f} cm), "
+        f"{(len(demo['frames']) - 2) / demo['t_rest']:.1f} frames/s")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"viz phase: {out['phase_s']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Distribution: ranks on the card (processes started by parallel.launch)
 # ---------------------------------------------------------------------------
 
@@ -2522,8 +2976,8 @@ def main() -> int:
     check_nn_api_kernels(torch, results, nn)
     check_tie_scenes(torch)
 
-    # 4-16. the main paths, each with its own launch counts
-    bench_ms, stream, one_rank = {}, {}, {}
+    # 4-17. the main paths, each with its own launch counts
+    bench_ms, stream, one_rank, viz = {}, {}, {}, {}
     paths = [
         drive("frame", lambda: bench_ms.update(
             off=run_bench_slice(torch)), ("nn_payload", "banded_moments")),
@@ -2554,6 +3008,7 @@ def main() -> int:
               ("nn_payload",)),
         drive("pairs and checkpoints", lambda: run_pairs_and_checkpoints(
             torch), ("nn_payload", "radius_moments")),
+        drive("viz", lambda: viz.update(run_viz(torch)), VIZ_KERNELS),
     ]
     dist_dir = tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build"))
     snapshot = frontend_snapshot(dist_dir.name)   # an input, not counted
@@ -2568,9 +3023,13 @@ def main() -> int:
         f"{stream['prep_ms']:.2f} ms wire preparation per cloud, "
         f"{sum(stream['launches_per_frame'].values()):.1f} port kernel "
         "launches per frame")
+    log(f"viz phase on the card ({gpu_line()}): {viz['sink_ms']:.2f} "
+        f"ms/frame with a sink, {viz['none_ms']:.2f} without; "
+        f"{viz['reads']['sink']:.1f} and {viz['reads']['none']:.1f} "
+        f"device-to-host copies per frame; {viz['phase_s']:.1f} s")
     counts = {k: sum(c[k] for c in paths) for k in KERNELS}
 
-    # 17. the main paths went through every kernel
+    # 18. the main paths went through every kernel
     log(f"launches on all paths: {counts}")
     assert all(counts[k] > 0 for k in KERNELS), counts
 

@@ -219,8 +219,21 @@ def test_cli_kitti_run_and_eval_match_jax(scan_dir, tmp_path, capsys):
         assert got["rpe_rot"] == r["rpe_rot_rmse_deg"]
         for k in ("ate_rmse", "n_segments"):
             assert got[k] == pytest.approx(want[k], abs=1e-12), k
-    with pytest.raises(NotImplementedError, match="plots"):
-        cli.main(["kitti-eval", gt, outs["port"], "--plot", "p.png"])
+    # --plot: both commands draw the same pictures, pixel for pixel
+    import matplotlib.image as mpimg
+    pngs = {}
+    for name, main in (("port", cli.main), ("jax", jcli.main)):
+        pngs[name] = str(tmp_path / f"{name}_plot.png")
+        argv = ["kitti-eval", gt, outs["port"], "--plot", pngs[name]]
+        assert _json(main, argv, capsys)["plot"] == pngs[name]
+    for suffix in ("", "_err"):
+        got, want = (pngs[k].replace(".png", suffix + ".png")
+                     for k in ("port", "jax"))
+        assert os.path.exists(got) == os.path.exists(want)
+        if os.path.exists(want):
+            np.testing.assert_array_equal(mpimg.imread(got),
+                                          mpimg.imread(want))
+    assert os.path.exists(pngs["port"])
 
 
 def _ground_scene(seed=0):

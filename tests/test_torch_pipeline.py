@@ -411,13 +411,19 @@ def test_kernels_never_fall_back(monkeypatch, tmp_path):
 
 
 def test_app_rejects_unported_modes(sequence, tmp_path):
-    """The visualizer is the one App option still unported: it raises. The
-    modes that raised before the streaming slice (async finalize, the wire
-    formats, `debug_dir`) build and run frame by frame like JAX's App: the
-    golden scenario's first four frames pipelined at depth 2, uploaded in
-    batches of 2, with the same debug dump file names."""
-    with pytest.raises(NotImplementedError, match="Q1 #14"):
-        App(PipelineConfig(), device="cpu", visualizer=object())
+    """No App option is left unported: the visualizer, the last one to
+    raise, is taken as the sink. The modes that raised before the
+    streaming slice (async finalize, the wire formats, `debug_dir`) build
+    and run frame by frame like JAX's App: the golden scenario's first
+    four frames pipelined at depth 2, uploaded in batches of 2, with the
+    same debug dump file names."""
+    from aicp_mapping_tpu_torch.utils.visualizer import (NullVisualizer,
+                                                         RecordingVisualizer)
+
+    sink = RecordingVisualizer()
+    assert App(PipelineConfig(), device="cpu", visualizer=sink).vis is sink
+    assert isinstance(App(PipelineConfig(), device="cpu").vis,
+                      NullVisualizer)
     from aicp_mapping_tpu.pipeline import SequenceRunner as JRunner
     from aicp_mapping_tpu_torch.pipeline import SequenceRunner
 

@@ -1,7 +1,11 @@
 """The port's recorded-sequence commands against the JAX package's CLI on
-the CPU: `replay`, `accumulate` (the same PCD bytes) and `localize` on one
-device, over a sequence recorded by `SequenceRecorder`."""
+the CPU: `replay` (with `--live-viz` streaming to a viewer), `accumulate`
+(the same PCD bytes) and `localize` on one device, over a sequence
+recorded by `SequenceRecorder`."""
 import json
+import socket
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -13,6 +17,7 @@ from aicp_mapping_tpu.pipeline import SequenceRecorder
 from aicp_mapping_tpu.pipeline import synthetic_sequence as jax_sequence
 from aicp_mapping_tpu_torch import cli
 from aicp_mapping_tpu_torch.io.pcd import write_pcd
+from aicp_mapping_tpu_torch.utils import live_viz
 from test_golden import TOLERANCES
 
 torch.set_num_threads(1)
@@ -42,6 +47,28 @@ def recorded(tmp_path_factory):
     return root
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _read_types(port: int, out: list) -> None:
+    """A viewer of `replay --live-viz PORT`: connects as soon as the
+    command listens and keeps each frame's type until it closes."""
+    deadline = time.time() + 60
+    while True:
+        try:
+            sock = socket.create_connection(("127.0.0.1", port), timeout=60)
+            break
+        except OSError:
+            if time.time() > deadline:
+                raise
+            time.sleep(0.002)
+    with sock:
+        out.extend(h["type"] for h, _ in live_viz.read_frames(sock))
+
+
 def _run(main, argv, capsys):
     assert main(argv) == 0
     return json.loads(capsys.readouterr().out)
@@ -64,8 +91,23 @@ def test_replay_matches_jax(recorded, capsys, tmp_path):
                                  str(tmp_path / "got.txt")], capsys)
     assert got == want and got["frames"] == 4
     _poses_agree(tmp_path / "got.txt", tmp_path / "want.txt")
-    with pytest.raises(NotImplementedError, match="Q1 #14"):
-        cli.main(argv + ["--device", "cpu", "--live-viz", "0"])
+    # --live-viz, with a reference update every frame so that a viewer
+    # that connects after the bootstrap still sees clouds and maps: the
+    # summary of the same replay without it, and the viewer gets the stream
+    yaml = tmp_path / "every_frame.yaml"
+    yaml.write_text(CONFIG + "    referenceUpdateFrequency: 1\n")
+    live_argv = ["replay", str(recorded / "seq"), "--config", str(yaml),
+                 "--device", "cpu"]
+    port = _free_port()
+    got_types = []
+    reader = threading.Thread(target=_read_types, args=(port, got_types),
+                              daemon=True)
+    reader.start()
+    live = _run(cli.main, live_argv + ["--live-viz", str(port)], capsys)
+    reader.join(timeout=10)
+    assert not reader.is_alive()
+    assert live == _run(cli.main, live_argv, capsys)
+    assert {"cloud", "map", "pose", "metric"} <= set(got_types), got_types
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(argv)
