@@ -36,9 +36,14 @@ travel; a new reference cloud and the map, read to the host only when the
 sink is not a `NullVisualizer`. Those reads run in finalize, on whichever
 thread finalizes, after the frame's scalars event (`_Scalars`) has been
 waited on, so they go on a stream of their own and wait for nothing
-dispatched since. `timing` (`utils.timing.TimingUtils`) records the
-scalar wait ("frameStep", synchronous finalize) and the host tail
-("fullLoop").
+dispatched since. `timing` (`utils.timing.TimingUtils`) records, on
+either finalize path, the wait on a batch's scalars
+("aicp.app.finalize_wait", JAX's "frameStep") and each frame's host tail
+("aicp.app.finalize", JAX's "fullLoop"); each section is also a span of
+the port's tracer (`utils.timing.span`), as are the dispatch
+("aicp.app.dispatch"), `flush` ("aicp.app.flush") and a blocking wait for
+the state lock ("aicp.app.lock_wait"). The App's spans carry the frame's
+index in `frames`, assigned at dispatch.
 """
 from __future__ import annotations
 
@@ -57,6 +62,7 @@ from ..cloud import AlignedCloud, AlignedCloudsGraph, Cloud
 from ..io.pcd import write_pcd
 from ..ops.normals import radius_normals
 from ..ops.voxel import crop_box
+from ..utils import timing
 from ..utils.timing import TimingUtils
 from ..utils.visualizer import NullVisualizer, Visualizer
 from .config import PipelineConfig
@@ -169,8 +175,12 @@ class App:
         # first registration into an empty graph is exempt from the accept
         # gate.
         self._registered_any = False
-        # Frames dispatched and not yet finalized, oldest first.
+        # Frames dispatched and not yet finalized, oldest first, and the
+        # frames dispatched and not yet recorded in `frames` (those pending
+        # and those handed to the finalizer): a frame's index in `frames`
+        # is known at its dispatch.
         self._pending: list[dict] = []
+        self._unrecorded = 0
         # _state_lock serializes dispatch and finalize bookkeeping; the
         # async finalizer waits for the device outside it.
         self._state_lock = threading.RLock()
@@ -335,10 +345,31 @@ class App:
         seen when its frame is finalized, so the frames dispatched in
         between register against the speculatively chosen reference — the
         JAX package's pipelined semantics."""
-        with self._state_lock:
-            return self._submit_cloud_locked(cloud)
+        with self._locked():
+            frame = len(self.frames) + self._unrecorded
+            with timing.span("aicp.app.dispatch", frame):
+                boot = self._dispatch(cloud, frame)
+            self._unrecorded += 1
+            if boot is not None:
+                return [boot]
+            return self._finalize_due()
 
-    def _submit_cloud_locked(self, cloud: AlignedCloud) -> list[FrameResult]:
+    @contextlib.contextmanager
+    def _locked(self):
+        """The state lock; a span "aicp.app.lock_wait" covers the wait when
+        another thread holds it."""
+        if not self._state_lock.acquire(blocking=False):
+            with timing.span("aicp.app.lock_wait"):
+                self._state_lock.acquire()
+        try:
+            yield
+        finally:
+            self._state_lock.release()
+
+    def _dispatch(self, cloud: AlignedCloud,
+                  frame: int) -> Optional[FrameResult]:
+        """Dispatch frame `frame`'s step and queue it for finalize; the
+        first cloud of a graph is bootstrapped and its result returned."""
         cfg = self.cfg
         if (_pre_voxelized(cfg, cloud.cloud.capacity)
                 and not cloud.cloud.pre_voxelized):
@@ -350,7 +381,7 @@ class App:
         mask = cloud.cloud.mask.to(self.device)
         if (not cfg.localize_against_prior_map and not cfg.load_map_from_file
                 and self.graph.is_empty() and not self._pending):
-            return [self._bootstrap(cloud, points, mask)]
+            return self._bootstrap(cloud, points, mask)
 
         odom_pose = np.asarray(cloud.prior_pose, np.float32)
         # the host's estimate of the reading's pose (stale under
@@ -394,8 +425,13 @@ class App:
             cloud=cloud, out=out, scalars=_Scalars(out),
             n_iter=out.n_iterations, ref_id=ref_id, odom_pose=odom_pose,
             saved_ref=saved_ref, spec_update=spec_update,
-            ref_gen=self._ref_gen))
-        depth = max(int(cfg.pipeline_depth), 1)
+            ref_gen=self._ref_gen, frame=frame))
+        return None
+
+    def _finalize_due(self) -> list[FrameResult]:
+        """Once `pipeline_depth` frames are in flight, finalize the oldest
+        half (or hand it to the finalizer); the results finished so far."""
+        depth = max(int(self.cfg.pipeline_depth), 1)
         if len(self._pending) < depth:
             return []
         # finalize only the oldest half: the youngest frames' work may
@@ -410,17 +446,18 @@ class App:
     def flush(self) -> list[FrameResult]:
         """Finalize every frame in flight and return the results not yet
         delivered."""
-        if self._fin_queue is not None:
-            with self._state_lock:
+        with timing.span("aicp.app.flush"):
+            if self._fin_queue is not None:
+                with self._locked():
+                    batch, self._pending = self._pending, []
+                    if batch:
+                        self._fin_queue.put(batch)
+                self._fin_queue.join()
+                with self._locked():
+                    return self._drain_results_locked()
+            with self._locked():
                 batch, self._pending = self._pending, []
-                if batch:
-                    self._fin_queue.put(batch)
-            self._fin_queue.join()
-            with self._state_lock:
-                return self._drain_results_locked()
-        with self._state_lock:
-            batch, self._pending = self._pending, []
-            return self._finalize_batch(batch)
+                return self._finalize_batch(batch)
 
     def drain_results(self) -> list[FrameResult]:
         """Async finalize: the results the finalizer thread finished since
@@ -446,8 +483,8 @@ class App:
             try:
                 if batch is None:
                     return
-                hosts = [p["scalars"].get() for p in batch]
-                with self._state_lock, batch[0]["scalars"].on_stream():
+                hosts = self._wait_scalars(batch)
+                with self._locked(), batch[0]["scalars"].on_stream():
                     self._fin_results.extend(
                         self._finalize(p, h) for p, h in zip(batch, hosts))
             except Exception as e:   # raised at the next drain / flush
@@ -472,12 +509,18 @@ class App:
         bookkeeping of each frame in order."""
         if not batch:
             return []
-        with self.timing.section("frameStep"):
-            hosts = [p["scalars"].get() for p in batch]
+        hosts = self._wait_scalars(batch)
         return [self._finalize(p, h) for p, h in zip(batch, hosts)]
 
+    def _wait_scalars(self, batch: list) -> list[np.ndarray]:
+        """The batch's scalars on the host (a wait on their events), timed
+        as "aicp.app.finalize_wait" under the batch's first frame."""
+        with self.timing.section("aicp.app.finalize_wait",
+                                 batch[0]["frame"]):
+            return [p["scalars"].get() for p in batch]
+
     def _finalize(self, pending: dict, host: np.ndarray) -> FrameResult:
-        with self.timing.section("fullLoop"):
+        with self.timing.section("aicp.app.finalize", pending["frame"]):
             return self._finalize_frame(pending, host)
 
     def _finalize_frame(self, pending: dict,
@@ -637,6 +680,7 @@ class App:
 
     def _record(self, res: FrameResult) -> FrameResult:
         self.frames.append(res)
+        self._unrecorded -= 1
         return res
 
     def _dump_debug_cloud(self, cloud: Cloud, tag: str) -> None:

@@ -19,6 +19,7 @@ from ..overlap.fov import fov_overlap
 from ..ops.segmentation import plane_segmentation_filter
 from ..ops.voxel import voxel_downsample, voxel_set_overlap
 from ..registration.icp import clamp_trim_ratio, point_to_plane_icp
+from ..utils.timing import span
 from .config import PipelineConfig
 
 
@@ -152,7 +153,9 @@ def make_app_frame_step(cfg: PipelineConfig, with_risk: bool = False,
     pose) feed the classifier (`clf_*`, the `SVMModel` tensors, with
     `with_classifier`), and a risk over `risk_threshold` gates the frame
     like the overlap gate. The gates and the total-correction chaining run
-    on the device.
+    on the device. The step's stages are spans of the port's tracer
+    (`utils.timing`): "aicp.step.prefilter", "aicp.step.overlap" (not with
+    a fixed overlap) and "aicp.step.icp".
     """
     debug_mode = cfg.working_mode != "robot"
     max_corr = float(cfg.max_correction_magnitude)
@@ -168,15 +171,17 @@ def make_app_frame_step(cfg: PipelineConfig, with_risk: bool = False,
         else:
             read_pose = odom_pose
             pts = raw_points
-        fpts, fmask, fnormals = _prefilter(cfg, pts, raw_mask,
-                                           read_pose[:3, 3])
+        with span("aicp.step.prefilter"):
+            fpts, fmask, fnormals = _prefilter(cfg, pts, raw_mask,
+                                               read_pose[:3, 3])
 
         if fixed_overlap >= 0.0:
             overlap = torch.full((), float(fixed_overlap),
                                  dtype=torch.float32, device=dev)
         else:
-            overlap = _overlap_percent(cfg, ref_points, ref_mask, fpts,
-                                       fmask)
+            with span("aicp.step.overlap"):
+                overlap = _overlap_percent(cfg, ref_points, ref_mask, fpts,
+                                           fmask)
         minus1 = torch.full((), -1.0, dtype=torch.float32, device=dev)
 
         risk_ok = torch.ones((), dtype=torch.bool, device=dev)
@@ -191,8 +196,9 @@ def make_app_frame_step(cfg: PipelineConfig, with_risk: bool = False,
         ratio = clamp_trim_ratio(overlap, cfg.trim_ratio_floor,
                                  cfg.trim_ratio_ceil)
         eye4 = se3.identity(device=dev)
-        res = point_to_plane_icp(fpts, fmask, ref_points, ref_normals,
-                                 ref_mask, eye4, ratio, cfg.icp)
+        with span("aicp.step.icp"):
+            res = point_to_plane_icp(fpts, fmask, ref_points, ref_normals,
+                                     ref_mask, eye4, ratio, cfg.icp)
 
         # Gates. Risk gate and overlap gate (both discard the correction
         # and force a reference update), then the accept gate: any axis of

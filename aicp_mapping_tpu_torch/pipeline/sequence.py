@@ -7,7 +7,10 @@ wire preparation on worker threads, in order) or from a recorded directory
 (`run_directory`: `aicp_input_poses.csv` + `cloud_<i>_<sec>_<nsec>.pcd`,
 read ahead by `native.SequencePrefetcher`). `wire_cloud` and `wire_batch`
 prepare clouds per the config's wire format (host voxel grid, int16
-upload); `SequenceRecorder` writes the directory layout.
+upload; spans "aicp.wire.voxel" around the host grid and quantization and
+"aicp.wire.upload" around the copy to the device and the dequantize, on
+the thread that prepares the cloud); `SequenceRecorder` writes the
+directory layout.
 `synthetic_sequence` is a copy of the JAX function whose SO(3) exponential
 runs in numpy float32 instead of jax.numpy.
 """
@@ -27,6 +30,7 @@ from ..cloud import AlignedCloud, Cloud, _dequantize
 from ..io.pcd import write_pcd
 from ..io.poses import PoseWithTime, read_pose_csv, write_pose_csv
 from ..tools.synthetic import room_cloud
+from ..utils.timing import span
 from .app import FrameResult, check_device
 from .config import PipelineConfig
 
@@ -43,18 +47,25 @@ def wire_cloud(cfg: PipelineConfig, pts: np.ndarray,
     pts = np.asarray(pts, np.float32)
     if cfg.wire_voxel > 0.0:
         if cfg.quantized_upload:
-            q, scale, center, n = native.voxel_downsample_q16(
-                pts, cfg.wire_voxel, cfg.downsample_capacity)
-            cloud = Cloud.from_wire_q16(q, scale, center, n, device=device)
+            with span("aicp.wire.voxel"):
+                q, scale, center, n = native.voxel_downsample_q16(
+                    pts, cfg.wire_voxel, cfg.downsample_capacity)
+            with span("aicp.wire.upload"):
+                cloud = Cloud.from_wire_q16(q, scale, center, n,
+                                            device=device)
         else:
-            cloud = Cloud.from_numpy(
-                native.voxel_downsample(pts, cfg.wire_voxel,
-                                        capacity=cfg.downsample_capacity),
-                capacity=cfg.downsample_capacity, device=device)
+            with span("aicp.wire.voxel"):
+                pts = native.voxel_downsample(
+                    pts, cfg.wire_voxel, capacity=cfg.downsample_capacity)
+            with span("aicp.wire.upload"):
+                cloud = Cloud.from_numpy(pts,
+                                         capacity=cfg.downsample_capacity,
+                                         device=device)
         return dataclasses.replace(cloud, pre_voxelized=True)
     cap = capacity if capacity is not None else cfg.raw_capacity
-    return Cloud.from_numpy(pts, capacity=cap, device=device,
-                            quantize=cfg.quantized_upload)
+    with span("aicp.wire.upload"):
+        return Cloud.from_numpy(pts, capacity=cap, device=device,
+                                quantize=cfg.quantized_upload)
 
 
 def wire_batch(cfg: PipelineConfig, pts_list: list,
@@ -75,18 +86,20 @@ def wire_batch(cfg: PipelineConfig, pts_list: list,
     sc = torch.empty((2, B, 3), dtype=torch.float32, pin_memory=pin)
     counts = []
     for i, pts in enumerate(pts_list):
-        q, scale, center, n = native.voxel_downsample_q16(
-            np.asarray(pts, np.float32), cfg.wire_voxel, cap)
+        with span("aicp.wire.voxel"):
+            q, scale, center, n = native.voxel_downsample_q16(
+                np.asarray(pts, np.float32), cfg.wire_voxel, cap)
         qs[i] = torch.from_numpy(q)
         sc[0, i] = torch.from_numpy(scale)
         sc[1, i] = torch.from_numpy(center)
         counts.append(n)
     # Non-blocking from pinned memory: the caching host allocator keeps
     # these buffers until the copies on the current stream have run.
-    qd = qs.to(dev, non_blocking=pin)
-    scd = sc.to(dev, non_blocking=pin)
-    return [dataclasses.replace(_dequantize(qd[i], scd[0, i], scd[1, i], n),
-                                pre_voxelized=True)
+    with span("aicp.wire.upload"):
+        qd = qs.to(dev, non_blocking=pin)
+        scd = sc.to(dev, non_blocking=pin)
+        return [dataclasses.replace(
+            _dequantize(qd[i], scd[0, i], scd[1, i], n), pre_voxelized=True)
             for i, n in enumerate(counts)]
 
 
@@ -218,12 +231,14 @@ class SequenceRunner:
         """items: (utime, points (N, 3), prior_pose (4, 4)).
 
         The wire preparation (host voxel grid, quantization, upload) of up
-        to `prep_window` frames ahead runs on `prep_workers` threads and is
-        delivered in order. `batch_h2d` > 1 with the quantized wire format
-        prepares that many frames per task and uploads them in one copy
-        (`wire_batch`). `flush=False` leaves the submission pipeline full:
-        its frames' results come with the next call or `App.flush`. A
-        failed preparation raises here; nothing falls back."""
+        to `prep_window` frames ahead runs on `prep_workers` threads (named
+        "aicp-wire_<k>") and is delivered in order; each wait on one is a
+        span "aicp.runner.prep_wait". `batch_h2d` > 1 with the quantized
+        wire format prepares that many frames per task and uploads them in
+        one copy (`wire_batch`). `flush=False` leaves the submission
+        pipeline full: its frames' results come with the next call or
+        `App.flush`. A failed preparation raises here; nothing falls
+        back."""
         items = list(items)
         cfg, dev = self.app.cfg, self.app.device
         stream = _on_stream(dev)
@@ -235,10 +250,12 @@ class SequenceRunner:
 
             batches = [items[i:i + batch_h2d]
                        for i in range(0, len(items), batch_h2d)]
-            with ThreadPoolExecutor(max_workers=1) as ex:
+            with ThreadPoolExecutor(max_workers=1,
+                                    thread_name_prefix="aicp-wire") as ex:
                 fut = ex.submit(prep, batches[0]) if batches else None
                 for bi, batch in enumerate(batches):
-                    clouds = fut.result()
+                    with span("aicp.runner.prep_wait"):
+                        clouds = fut.result()
                     if bi + 1 < len(batches):
                         fut = ex.submit(prep, batches[bi + 1])
                     for (utime, _pts, pose), cloud in zip(batch, clouds):
@@ -249,11 +266,13 @@ class SequenceRunner:
                 with stream():
                     return wire_cloud(cfg, pts, self.raw_capacity, dev)
 
-            with ThreadPoolExecutor(max_workers=prep_workers) as ex:
+            with ThreadPoolExecutor(max_workers=prep_workers,
+                                    thread_name_prefix="aicp-wire") as ex:
                 futs = {i: ex.submit(prep, items[i][1])
                         for i in range(min(prep_window, len(items)))}
                 for i, (utime, _pts, pose) in enumerate(items):
-                    cloud = futs.pop(i).result()
+                    with span("aicp.runner.prep_wait"):
+                        cloud = futs.pop(i).result()
                     nxt = i + len(futs) + 1
                     if nxt < len(items):
                         futs[nxt] = ex.submit(prep, items[nxt][1])

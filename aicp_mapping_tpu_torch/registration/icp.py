@@ -12,7 +12,11 @@ checkers:  max iteration count + smoothed differential transformation
 
 The JAX solver is one device `lax.while_loop`. Here the loop is Python
 with early exit: once the checker's history is full, each iteration reads
-one scalar (the convergence flag) back to the host. `T`, `n_iterations`
+one scalar (the convergence flag) back to the host. On the card each
+iteration's `torch.linalg.solve` (and, degeneracy-aware, its `eigh`) reads
+its error flag back too. Each read is a span of the port's tracer
+(`utils.timing`): "aicp.icp.sync" the convergence flag's,
+"aicp.icp.solve_check" each linear-algebra call's. `T`, `n_iterations`
 and the final-iteration statistics are those of the while_loop.
 
 SPMD (`config.axis_name` and a `mesh` of `parallel.mesh`): with
@@ -38,6 +42,7 @@ from ..ops.banded_nn import (banded_prepare_payload, banded_window_starts,
                              payload_rows)
 from ..ops.knn import nn_payload_kernel
 from ..ops.quantile import masked_quantile_hist
+from ..utils.timing import span
 
 _BIG = 3.4e38
 # Validity guard for NN distances: far below the no-match sentinel.
@@ -258,20 +263,23 @@ def point_to_plane_icp(reading_points: torch.Tensor,
                                       device=dev) / r0])
             As_u = Ac_u * s[:, None] * s[None, :]
             As = Ac * s[:, None] * s[None, :]
-            evals_u, V = torch.linalg.eigh(As_u)
+            with span("aicp.icp.solve_check"):
+                evals_u, V = torch.linalg.eigh(As_u)
             keep = (evals_u > config.degeneracy_threshold).to(torch.float32)
             B = V.T @ As @ V
             lam_s = config.damping * torch.trace(B) / 6.0 + 1e-12
             Bm = (B * (keep[:, None] * keep[None, :])
                   + torch.diag(1.0 - keep) + lam_s * eye6)
-            x = torch.linalg.solve(Bm, keep * (V.T @ (bc * s)))
+            with span("aicp.icp.solve_check"):
+                x = torch.linalg.solve(Bm, keep * (V.T @ (bc * s)))
             dc = (V @ x) * s                                   # [v_c, w]
             wrot = dc[3:]
             delta = torch.cat([dc[:3] - torch.linalg.cross(wrot, cen,
                                                            dim=-1), wrot])
         else:
             lam = config.damping * torch.trace(A) / 6.0 + 1e-12
-            delta = torch.linalg.solve(A + lam * eye6, b)
+            with span("aicp.icp.solve_check"):
+                delta = torch.linalg.solve(A + lam * eye6, b)
         return delta, A, dist2, w, r, stats
 
     S = config.smooth_length
@@ -291,10 +299,14 @@ def point_to_plane_icp(reading_points: torch.Tensor,
         hist_r = torch.cat([torch.linalg.norm(delta[3:])[None], hist_r[:-1]])
         it += 1
         # DifferentialTransformationChecker, once its history is full: one
-        # scalar read per iteration
-        if it >= S and bool((hist_t.mean() < config.min_diff_trans)
-                            & (hist_r.mean() < config.min_diff_rot)):
-            break
+        # scalar read per iteration, each a span "aicp.icp.sync"
+        if it >= S:
+            converged = ((hist_t.mean() < config.min_diff_trans)
+                         & (hist_r.mean() < config.min_diff_rot))
+            with span("aicp.icp.sync"):
+                done = bool(converged)
+            if done:
+                break
 
     if red_axis is not None:
         # the final iteration's global inlier sums, reduced in its psum

@@ -3,8 +3,8 @@ the same publishes per hook (utimes, metric names, poses, map sizes) as
 JAX's App with the same sink; results with a sink bit for bit the App's
 without one, synchronous and pipelined with async finalize, publishes in
 frame order; no device read per frame with the default sink; `timing`'s
-sections; `FileVisualizer` through the App; a checkpoint loaded with a
-sink."""
+sections (JAX's, renamed); `FileVisualizer` through the App; a checkpoint
+loaded with a sink."""
 import os
 
 import numpy as np
@@ -193,22 +193,32 @@ def _frame(app, item):
         pts, capacity=app.cfg.raw_capacity), pose)
 
 
+# JAX's section names -> the port's (PARITY.md 2.11)
+SECTIONS = {"frameStep": "aicp.app.finalize_wait",
+            "fullLoop": "aicp.app.finalize"}
+
+
 def test_timing_sections_match_jax():
-    """`timing` records the scalar wait ("frameStep") and the host tail
-    ("fullLoop") of each finalized frame, as JAX's App does."""
+    """`timing` records the scalar wait (JAX's "frameStep", the port's
+    "aicp.app.finalize_wait") of each finalized batch and the host tail
+    ("fullLoop", "aicp.app.finalize") of each finalized frame, as JAX's
+    App does; the port records both on the async finalizer's path too."""
     items = _items("golden")[:4]
     japp = JaxApp(_cfg(JaxConfig, "golden"))
     JaxRunner(japp).run_clouds(items)
-    want = {k: v["count"] for k, v in japp.timing.summary().items()}
+    want = {SECTIONS[k]: v["count"] for k, v in japp.timing.summary().items()}
     app = App(_cfg(PipelineConfig, "golden"), device="cpu")
     SequenceRunner(app).run_clouds(items)
     got = {k: v["count"] for k, v in app.timing.summary().items()}
-    assert got == want == {"frameStep": 3, "fullLoop": 3}
+    assert got == want == {"aicp.app.finalize_wait": 3,
+                           "aicp.app.finalize": 3}
     app = App(_cfg(PipelineConfig, "golden", pipeline_depth=2,
                    async_finalize=True), device="cpu")
     SequenceRunner(app, pipelined=True).run_clouds(items)
     app.close()
-    assert app.timing.summary()["fullLoop"]["count"] == 3
+    got = {k: v["count"] for k, v in app.timing.summary().items()}
+    # the 3 frames after the bootstrap, in batches of depth // 2 = 1
+    assert got == {"aicp.app.finalize_wait": 3, "aicp.app.finalize": 3}
 
 
 def test_file_visualizer_through_the_app(tmp_path):

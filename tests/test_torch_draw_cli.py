@@ -107,7 +107,7 @@ def test_drive_demo_flow(capsys):
     assert all(0.0 <= f.risk <= 1.0 for f in frames[1:])
     assert len(vis.maps) >= 1 and len(vis.poses) >= 2
     summary = out["app"].timing.summary()
-    assert summary["fullLoop"]["count"] == 11
+    assert summary["aicp.app.finalize"]["count"] == 11
     assert "timing:" in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
