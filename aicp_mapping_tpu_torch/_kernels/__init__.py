@@ -10,8 +10,10 @@ machines import the package without `nvcc` or a card.
 
 Every kernel wrapper (in `ops/knn.py`, `ops/normals.py` and
 `ops/banded_nn.py`) adds one to its launch count right after its kernel
-was launched, and nowhere else, so a run can show that the main path
-really went through the kernels. K1 and K5 each have two modes, with a
+was launched, so a run can show that the main path really went through
+the kernels. One exception: ICP's iteration captured as a CUDA graph
+(`registration/icp.py`) holds a K1 launch, which `nn_payload_kernel` does
+not count under the capture (nothing ran) and each replay counts once. K1 and K5 each have two modes, with a
 wrapper and a count each: K1's `nn_payload` (the ICP matcher) and
 `nn_argmin` (its index mode), K5's `banded_nn_payload_stream` and
 `banded_nn_argmin`. Every C entry point launches a scan and a merge pass

@@ -86,7 +86,7 @@ def make_transform(rotation: torch.Tensor,
     top = torch.cat([rotation, translation[..., :, None]], dim=-1)
     bottom = torch.zeros(batch + (1, 4), dtype=rotation.dtype,
                          device=rotation.device)
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)
     return torch.cat([top, bottom], dim=-2)
 
 

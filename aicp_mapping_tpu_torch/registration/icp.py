@@ -12,12 +12,23 @@ checkers:  max iteration count + smoothed differential transformation
 
 The JAX solver is one device `lax.while_loop`. Here the loop is Python
 with early exit: once the checker's history is full, each iteration reads
-one scalar (the convergence flag) back to the host. On the card each
-iteration's `torch.linalg.solve` (and, degeneracy-aware, its `eigh`) reads
-its error flag back too. Each read is a span of the port's tracer
-(`utils.timing`): "aicp.icp.sync" the convergence flag's,
-"aicp.icp.solve_check" each linear-algebra call's. `T`, `n_iterations`
-and the final-iteration statistics are those of the while_loop.
+one scalar (the convergence flag) back to the host. `T`, `n_iterations`
+and the final-iteration statistics are those of the while_loop. One
+iteration is `_make_step`, a step on explicit state that reads nothing
+back itself; two loops drive it (`capture_plan` picks from the inputs):
+
+- on CUDA with K1 as the matcher, off a mesh and not degeneracy-aware, the
+  step is captured once per key (shapes, config, thread and stream) as a
+  CUDA graph and replayed once an iteration: one launch in place of ~100,
+  the solve's error code left on the device and read with the flag;
+- everywhere else the eager loop, where on the card each iteration's
+  `torch.linalg.solve` (and, degeneracy-aware, its `eigh`) reads its error
+  flag back too.
+
+Each host read is a span of the port's tracer (`utils.timing`):
+"aicp.icp.sync" the convergence flag's (on the graph path the status that
+carries it), "aicp.icp.solve_check" each eager linear-algebra call's; each
+replay is a span "aicp.icp.replay".
 
 SPMD (`config.axis_name` and a `mesh` of `parallel.mesh`): with
 `shard_axis_mode="reading"` each rank holds a slice of the reading and
@@ -31,11 +42,15 @@ without collectives (`parallel.sharded_icp`).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import threading
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..geometry import se3
 from ..ops.banded_nn import (banded_prepare_payload, banded_window_starts,
                              morton_codes, nn_payload_banded_stream_kernel,
@@ -47,6 +62,15 @@ from ..utils.timing import span
 _BIG = 3.4e38
 # Validity guard for NN distances: far below the no-match sentinel.
 _VALID_DIST = 1e30
+# The captured solves kept (`capture_plan`), least recently used out first:
+# a caller whose shapes vary (the SLAM back-end) cycles through a few.
+GRAPH_KEYS = 8
+_graphs: collections.OrderedDict = collections.OrderedDict()
+_graphs_lock = threading.Lock()
+# PyTorch allows one capture at a time in a process.
+_capture_lock = threading.Lock()
+_graph_counts = {"captures": 0, "replays": 0, "eager_iterations": 0}
+_count_lock = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +137,37 @@ def solver_plan(config: ICPConfig, M: int, N: int, device) -> dict:
     return {"nn": nn, "coarse": coarse}
 
 
+def capture_plan(config: ICPConfig, plan: dict, device, mesh=None) -> bool:
+    """Whether a single-phase solve with `solver_plan`'s `plan` replays its
+    iteration as a CUDA graph: on CUDA with K1 as the matcher, off a mesh
+    (collectives cannot sit in a graph) and not degeneracy-aware
+    (`torch.linalg.eigh` reads its error flag), for at least one
+    iteration. Everywhere else the loop is eager: the CPU's plain twin, the
+    banded matcher, the sharded modes, the degeneracy-aware solve."""
+    return (torch.device(device).type == "cuda" and plan["nn"] == "kernel"
+            and mesh is None and config.axis_name is None
+            and config.degeneracy_threshold == 0.0
+            and config.max_iterations > 0)
+
+
+def graph_counts() -> dict:
+    """Captures, replays (one an iteration) and iterations run eagerly,
+    since the last `reset_graph_counts`."""
+    with _count_lock:
+        return dict(_graph_counts)
+
+
+def reset_graph_counts() -> None:
+    with _count_lock:
+        for k in _graph_counts:
+            _graph_counts[k] = 0
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _count_lock:
+        _graph_counts[name] += n
+
+
 def point_to_plane_icp(reading_points: torch.Tensor,
                        reading_mask: torch.Tensor,
                        reference_points: torch.Tensor,
@@ -162,11 +217,20 @@ def point_to_plane_icp(reading_points: torch.Tensor,
         return dataclasses.replace(
             fine, n_iterations=fine.n_iterations + coarse.n_iterations)
 
-    dev = reading_points.device
     p2plane = config.error_metric == "point_to_plane"
     if config.error_metric not in ("point_to_plane", "point_to_point"):
         raise ValueError(f"unknown error_metric {config.error_metric!r}")
     ref_normals = reference_normals if p2plane else None
+    inputs = (reading_points, reading_mask, reference_points, ref_normals,
+              reference_mask, init_T, trim_ratio)
+    key = None
+    if capture_plan(config, plan, reading_points.device, mesh):
+        key = _graph_key(config, inputs)
+        rep = _graph_for(key, config, inputs)
+        if rep is not None:
+            return _replayed(rep, config, inputs)
+
+    dev = reading_points.device
     if plan["nn"] == "banded":
         match, work_points, work_mask, inv_q = _banded_matcher(
             config, reading_points, reading_mask, reference_points,
@@ -179,11 +243,96 @@ def point_to_plane_icp(reading_points: torch.Tensor,
     if ref_sharded:
         match = _global_matcher(match, mesh, axis, 6 if p2plane else 3)
     red_axis = axis if reading_sharded else None
+    step = _make_step(config, match, work_points, work_mask,
+                      work_mask.to(torch.float32), trim_ratio,
+                      _checked_solve, mesh, red_axis)
+
+    S = config.smooth_length
+    T = init_T.to(torch.float32)
+    hist_t = torch.full((S,), _BIG, dtype=torch.float32, device=dev)
+    hist_r = torch.full((S,), _BIG, dtype=torch.float32, device=dev)
+    A = torch.zeros((6, 6), dtype=torch.float32, device=dev)
+    dist2 = torch.full((M,), _BIG, dtype=torch.float32, device=dev)
+    w = torch.zeros((M,), dtype=torch.float32, device=dev)
+    r = torch.zeros((M,), dtype=torch.float32, device=dev)
+    stats = torch.zeros((2,), dtype=torch.float32, device=dev)
+    it = 0
+    while it < config.max_iterations:
+        T, hist_t, hist_r, converged, A, dist2, w, r, stats, _ = step(
+            T, hist_t, hist_r)
+        it += 1
+        # DifferentialTransformationChecker, once its history is full: one
+        # scalar read per iteration, each a span "aicp.icp.sync"
+        if it >= S:
+            with span("aicp.icp.sync"):
+                done = bool(converged)
+            if done:
+                break
+    _count("eager_iterations", it)
+    if key is not None:
+        _warmed(key)
+
+    if red_axis is not None:
+        # the final iteration's global inlier sums, reduced in its psum
+        inlier_rms = torch.sqrt(stats[1] / torch.clamp(stats[0], min=1.0))
+    else:
+        wsum = torch.clamp(w.sum(), min=1.0)
+        inlier_rms = torch.sqrt((w * r * r).sum() / wsum)
+    if inv_q is not None:
+        # per-point outputs back to the caller's reading order
+        dist2, w = dist2[inv_q], w[inv_q]
+    return ICPResult(T=T, n_iterations=it, inlier_rms=inlier_rms,
+                     match_dist2=dist2, inlier_mask=w > 0, hessian=A)
+
+
+class _Step(NamedTuple):
+    """What one iteration gives: the state after its update (`T`, the
+    checker's histories), the checker's flag, and the iteration's
+    statistics: the normal matrix, squared match distances, inlier weights
+    and residuals, the reduced inlier sums (reading-sharded) and the
+    solve's error code (`_unchecked_solve`; None from `_checked_solve`)."""
+    T: torch.Tensor
+    hist_t: torch.Tensor
+    hist_r: torch.Tensor
+    converged: torch.Tensor
+    A: torch.Tensor
+    dist2: torch.Tensor
+    w: torch.Tensor
+    r: torch.Tensor
+    stats: Optional[torch.Tensor]
+    info: Optional[torch.Tensor]
+
+
+def _checked_solve(M, b):
+    """`torch.linalg.solve`: on the card it reads its error flag back, one
+    span "aicp.icp.solve_check" a read. Returns (x, None)."""
+    with span("aicp.icp.solve_check"):
+        return torch.linalg.solve(M, b), None
+
+
+def _unchecked_solve(M, b):
+    """The LU solve of `torch.linalg.solve` (which is `solve_ex` and a host
+    check of its error code) with the code left on the device: (x, info)."""
+    x, info = torch.linalg.solve_ex(M, b, check_errors=False)
+    return x, info
+
+
+def _make_step(config: ICPConfig, match, work_points, work_mask, m_f,
+               trim_ratio, solve, mesh=None, red_axis=None):
+    """One iteration of the single-phase solve on explicit state:
+    step(T, hist_t, hist_r) -> `_Step`. It transforms the reading, matches
+    it (`match(p, mask)` -> (dist2, payload)), trims, builds and solves the
+    normal equations with `solve(M, b)` -> (x, info), updates T and the
+    DifferentialTransformationChecker's histories and computes its flag.
+    It reads nothing back to the host itself: the only reads are those of
+    `solve` and, degeneracy-aware, `eigh` and the shards' collectives
+    (`red_axis` of `mesh`, reading mode)."""
+    dev = work_points.device
+    p2plane = config.error_metric == "point_to_plane"
 
     def preduce(*xs):
         """The shards' sums of `xs` in one `psum` (reading mode)."""
         return xs if red_axis is None else mesh.psum_many(xs, red_axis)
-    m_f = work_mask.to(torch.float32)
     degen = config.degeneracy_threshold > 0.0
     mmd2 = (float(np.float32(config.max_match_dist ** 2))
             if config.max_match_dist > 0.0 else None)
@@ -270,55 +419,197 @@ def point_to_plane_icp(reading_points: torch.Tensor,
             lam_s = config.damping * torch.trace(B) / 6.0 + 1e-12
             Bm = (B * (keep[:, None] * keep[None, :])
                   + torch.diag(1.0 - keep) + lam_s * eye6)
-            with span("aicp.icp.solve_check"):
-                x = torch.linalg.solve(Bm, keep * (V.T @ (bc * s)))
+            x, info = solve(Bm, keep * (V.T @ (bc * s)))
             dc = (V @ x) * s                                   # [v_c, w]
             wrot = dc[3:]
             delta = torch.cat([dc[:3] - torch.linalg.cross(wrot, cen,
                                                            dim=-1), wrot])
         else:
             lam = config.damping * torch.trace(A) / 6.0 + 1e-12
-            with span("aicp.icp.solve_check"):
-                delta = torch.linalg.solve(A + lam * eye6, b)
-        return delta, A, dist2, w, r, stats
+            delta, info = solve(A + lam * eye6, b)
+        return delta, A, dist2, w, r, stats, info
 
-    S = config.smooth_length
-    T = init_T.to(torch.float32)
-    hist_t = torch.full((S,), _BIG, dtype=torch.float32, device=dev)
-    hist_r = torch.full((S,), _BIG, dtype=torch.float32, device=dev)
-    A = torch.zeros((6, 6), dtype=torch.float32, device=dev)
-    dist2 = torch.full((M,), _BIG, dtype=torch.float32, device=dev)
-    w = torch.zeros((M,), dtype=torch.float32, device=dev)
-    r = torch.zeros((M,), dtype=torch.float32, device=dev)
-    stats = torch.zeros((2,), dtype=torch.float32, device=dev)
-    it = 0
-    while it < config.max_iterations:
-        delta, A, dist2, w, r, stats = iteration(T)
+    def step(T, hist_t, hist_r):
+        delta, A, dist2, w, r, stats, info = iteration(T)
         T = se3.se3_exp(delta) @ T
         hist_t = torch.cat([torch.linalg.norm(delta[:3])[None], hist_t[:-1]])
         hist_r = torch.cat([torch.linalg.norm(delta[3:])[None], hist_r[:-1]])
-        it += 1
-        # DifferentialTransformationChecker, once its history is full: one
-        # scalar read per iteration, each a span "aicp.icp.sync"
-        if it >= S:
-            converged = ((hist_t.mean() < config.min_diff_trans)
-                         & (hist_r.mean() < config.min_diff_rot))
-            with span("aicp.icp.sync"):
-                done = bool(converged)
-            if done:
-                break
+        converged = ((hist_t.mean() < config.min_diff_trans)
+                     & (hist_r.mean() < config.min_diff_rot))
+        return _Step(T, hist_t, hist_r, converged, A, dist2, w, r, stats,
+                     info)
 
-    if red_axis is not None:
-        # the final iteration's global inlier sums, reduced in its psum
-        inlier_rms = torch.sqrt(stats[1] / torch.clamp(stats[0], min=1.0))
-    else:
-        wsum = torch.clamp(w.sum(), min=1.0)
-        inlier_rms = torch.sqrt((w * r * r).sum() / wsum)
-    if inv_q is not None:
-        # per-point outputs back to the caller's reading order
-        dist2, w = dist2[inv_q], w[inv_q]
-    return ICPResult(T=T, n_iterations=it, inlier_rms=inlier_rms,
-                     match_dist2=dist2, inlier_mask=w > 0, hessian=A)
+    return step
+
+
+def _graph_key(config: ICPConfig, inputs) -> tuple:
+    """A captured solve's key: the configuration, the device, this thread
+    and its current stream (so that no two threads share buffers), and the
+    inputs' shapes and dtypes (a Python trim ratio as a float32 0-d)."""
+    dev, trim_ratio = inputs[0].device, inputs[-1]
+    ratio = (trim_ratio if isinstance(trim_ratio, torch.Tensor)
+             else torch.empty((), dtype=torch.float32))
+    tensors = [t for t in inputs[:5] if t is not None] + [ratio]
+    stream = (torch.cuda.current_stream(dev).cuda_stream
+              if dev.type == "cuda" else None)
+    return (config, str(dev), threading.get_ident(), stream,
+            tuple((tuple(t.shape), t.dtype) for t in tensors))
+
+
+def _graph_for(key, config: ICPConfig, inputs):
+    """The captured solve of `key`, or None on the key's first call: that
+    one runs eagerly, warming up cuBLAS, cuSOLVER and the allocator, and
+    then marks the key (`_warmed`). The second call captures."""
+    with _graphs_lock:
+        if key not in _graphs:
+            return None
+        _graphs.move_to_end(key)
+        rep = _graphs[key]
+    if rep is None:
+        rep = _Replay(config, inputs)
+        rep.load(inputs)
+        rep.capture()
+        with _graphs_lock:
+            _graphs[key] = rep
+            _evict()
+    return rep
+
+
+def _warmed(key) -> None:
+    with _graphs_lock:
+        _graphs.setdefault(key, None)
+        _graphs.move_to_end(key)
+        _evict()
+
+
+def _evict() -> None:
+    while len(_graphs) > GRAPH_KEYS:
+        _graphs.popitem(last=False)
+
+
+class _Replay:
+    """A single-phase solve on K1 as one CUDA graph an iteration
+    (`capture_plan`): static copies of the inputs, the solver's state (T,
+    the checker's histories, the first failed solve's `info`), and `body`,
+    one `_make_step` iteration with `_unchecked_solve` that writes the
+    state back. `status` is the one value the host reads: bit 0 the
+    checker's flag, bit 1 a failed solve in any iteration so far. `out`
+    holds the last iteration's (hessian, match_dist2, inlier_mask,
+    inlier_rms); a replay overwrites them in place."""
+
+    def __init__(self, config: ICPConfig, inputs):
+        (reading_points, reading_mask, reference_points, reference_normals,
+         reference_mask, _, trim_ratio) = inputs
+        dev = reading_points.device
+
+        def like(t):
+            return torch.empty(t.shape, dtype=t.dtype, device=dev)
+        self.points, self.mask = like(reading_points), like(reading_mask)
+        self.m_f = torch.empty(self.mask.shape, dtype=torch.float32,
+                               device=dev)
+        self.ref, self.ref_mask = like(reference_points), like(reference_mask)
+        # `payload_rows`'s layout: [x y z, the normal point-to-plane, 0...]
+        self.payload = torch.zeros((self.ref.shape[0], 8),
+                                   dtype=torch.float32, device=dev)
+        self.ratio = (like(trim_ratio) if isinstance(trim_ratio, torch.Tensor)
+                      else torch.empty((), dtype=torch.float32, device=dev))
+        S = config.smooth_length
+        self.T = torch.empty((4, 4), dtype=torch.float32, device=dev)
+        self.hist_t = torch.empty((S,), dtype=torch.float32, device=dev)
+        self.hist_r = torch.empty((S,), dtype=torch.float32, device=dev)
+        self.info = torch.zeros((), dtype=torch.int32, device=dev)
+        self.status = torch.zeros((), dtype=torch.int32, device=dev)
+        ref, ref_mask, payload = self.ref, self.ref_mask, self.payload
+
+        def match(p, mask):
+            return nn_payload_kernel(p, mask, ref, ref_mask, payload)
+
+        self.step = _make_step(config, match, self.points, self.mask,
+                               self.m_f, self.ratio, _unchecked_solve)
+        self.graph = None
+        self.out = None
+
+    def load(self, inputs) -> None:
+        """A call's inputs into the static buffers and the solver's start
+        state, in stream order: no host read, no host wait."""
+        (reading_points, reading_mask, reference_points, reference_normals,
+         reference_mask, init_T, trim_ratio) = inputs
+        self.points.copy_(reading_points)
+        self.mask.copy_(reading_mask)
+        self.m_f.copy_(reading_mask)
+        self.ref.copy_(reference_points)
+        self.ref_mask.copy_(reference_mask)
+        self.payload[:, :3].copy_(reference_points)
+        if reference_normals is not None:
+            self.payload[:, 3:6].copy_(reference_normals)
+        if isinstance(trim_ratio, torch.Tensor):
+            self.ratio.copy_(trim_ratio)
+        else:
+            self.ratio.fill_(trim_ratio)
+        self.T.copy_(init_T)
+        self.hist_t.fill_(_BIG)
+        self.hist_r.fill_(_BIG)
+        self.info.zero_()
+
+    def body(self) -> None:
+        """One iteration on the static state: what the graph holds."""
+        s = self.step(self.T, self.hist_t, self.hist_r)
+        self.T.copy_(s.T)
+        self.hist_t.copy_(s.hist_t)
+        self.hist_r.copy_(s.hist_r)
+        self.info.copy_(torch.where(self.info != 0, self.info, s.info))
+        self.status.copy_(s.converged.to(torch.int32)
+                          + 2 * (self.info != 0).to(torch.int32))
+        wsum = torch.clamp(s.w.sum(), min=1.0)
+        self.out = (s.A, s.dist2, s.w > 0,
+                    torch.sqrt((s.w * s.r * s.r).sum() / wsum))
+
+    def capture(self) -> None:
+        """PyTorch's recipe: warm `body` up on a side stream, then capture
+        it there. `thread_local`: other threads (the App's finalizer) may
+        work on the card meanwhile. The capture waits for the whole card
+        first, so the replays, on the caller's stream, follow the warm-up."""
+        dev = self.T.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.body()
+        graph = torch.cuda.CUDAGraph()
+        with _capture_lock, torch.cuda.graph(
+                graph, stream=side, capture_error_mode="thread_local"):
+            self.body()
+        self.graph = graph
+        _count("captures")
+
+
+def _replayed(rep: _Replay, config: ICPConfig, inputs) -> ICPResult:
+    """The single-phase solve by `rep`'s graph: the eager loop's iterations
+    and early exit, one replay (a span "aicp.icp.replay", one launch of K1)
+    an iteration. From `smooth_length` on each iteration reads `status`
+    (a span "aicp.icp.sync"), as the eager loop reads its flag; a run
+    shorter than the history reads it once at its end. A failed solve
+    raises the error `torch.linalg.solve` raises. The results are copies:
+    the next call overwrites the graph's buffers."""
+    rep.load(inputs)
+    S, it = config.smooth_length, 0
+    while it < config.max_iterations:
+        with span("aicp.icp.replay"):
+            rep.graph.replay()
+        _kernels.count_launch("nn_payload")
+        _count("replays")
+        it += 1
+        if it >= S or it == config.max_iterations:
+            with span("aicp.icp.sync"):
+                status = int(rep.status)
+            if status & 2:
+                torch._linalg_check_errors(rep.info, "torch.linalg.solve",
+                                           is_matrix=True)
+            if status & 1 and it >= S:
+                break
+    A, dist2, inliers, rms = rep.out
+    return ICPResult(T=rep.T.clone(), n_iterations=it, inlier_rms=rms.clone(),
+                     match_dist2=dist2.clone(), inlier_mask=inliers.clone(),
+                     hessian=A.clone())
 
 
 def _full_matcher(ref_points, ref_normals, ref_mask):

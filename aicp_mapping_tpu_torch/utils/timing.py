@@ -30,7 +30,8 @@ The port's spans (PERF.md lists each site and the metric that reads it):
 `aicp.app.finalize` (`pipeline/app.py`), `aicp.step.prefilter`,
 `aicp.step.overlap`, `aicp.step.icp` (`pipeline/fused.py`), `aicp.icp.sync`
 and `aicp.icp.solve_check` (`registration/icp.py`, one per host read of
-ICP's convergence flag and of a linear-algebra call's error flag).
+ICP's convergence flag and of a linear-algebra call's error flag), and
+`aicp.icp.replay` (one per replay of ICP's captured iteration).
 """
 from __future__ import annotations
 

@@ -12,6 +12,10 @@ launch counts set to 0 just before it and read just after:
   at the benchmark's operating point (65,536-point raw clouds -> 16,384
   voxels -> 8,192 filtered points, coarse-to-fine ICP) against the same App
   on the CPU;
+- ICP's captured iteration (`run_icp_graph`) at the same point: the
+  App's two captures and then every iteration a replay, each frame's ICP
+  call by the graph and by the eager loop against each other, K1's
+  launches on both and under the profiler;
 - the golden scenario against `tests/golden/pipeline_golden.json`;
 - map-scale localization: `ShardedMapLocalizer.localize` of 60,000-point
   scans against a 262,144-point prior map, cropped to 65,536 and to
@@ -122,6 +126,7 @@ Every phase asserts; the last line of standard output is
 `{"ok": true, "device": {...}}` only when all of them passed. Imports
 nothing of JAX. Exits non-zero without a result when CUDA is unavailable.
 """
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -185,6 +190,12 @@ BIG = 3.4e38
 NN_API_CELL = 4.0     # m, the ICP's Morton cell (ICPConfig.nn_cell_size)
 NN_API_BAND = 16      # of 64 blocks: the auto band of 8,192 x 65,536
 STREAM_FRAMES = 40    # bench.py --frames
+# The ICP graph phase: its bench frames, and the first frame after the
+# bootstrap, the eager frame and the capturing one; the benchmark's limit
+# on the widest gap between two corrections (portbench/workloads).
+ICP_GRAPH_FRAMES = 8
+ICP_GRAPH_WARM = 3
+CORR_GAP_M = 0.002
 
 
 def log(*args):
@@ -992,6 +1003,122 @@ def run_bench_slice(torch, risk: bool = False, wire: bool = False) -> float:
         f"warm-up frame; min {min(steady):.2f}, max {max(steady):.2f}); "
         f"CPU App {np.mean(cpu_s[2:]):.2f} s/frame")
     return float(np.mean(steady))
+
+
+def run_icp_graph(torch) -> dict:
+    """The "ICP graph" phase, at the benchmark's operating point: (1) an
+    App on the card over ICP_GRAPH_FRAMES bench frames from an empty cache
+    of captured solves: two captures (the coarse 1,024 x 8,192 and fine
+    8,192 x 8,192 keys) in the frames before ICP_GRAPH_WARM, then every
+    ICP iteration a replay and none eager; (2) each later frame's ICP call
+    again, by the graph path and by the eager loop (`capture_plan` forced
+    off), for T, n_iterations and the hessian: bitwise, else the largest
+    gap reported, where T's is the widest gap between where the two
+    corrections put a filtered point, held to the benchmark's `corr_gap_m`
+    limit; K1's launches equal on both paths; each path's synchronised host
+    ms a call; (3) one graph call under `torch.profiler`: K1's scan and
+    merge seen inside the replays. Returns the timings."""
+    from aicp_mapping_tpu_torch import AlignedCloud, App, Cloud, _kernels
+    from aicp_mapping_tpu_torch.pipeline import fused
+    from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
+    from aicp_mapping_tpu_torch.registration import icp
+
+    cfg = cells().bench_config()
+    items, _ = synthetic_sequence(n_frames=ICP_GRAPH_FRAMES,
+                                  **cells().SCAN_ARGS)
+    icp._graphs.clear()
+    icp.reset_graph_counts()
+    calls = []
+    solve = fused.point_to_plane_icp
+
+    def recording(*args):
+        res = solve(*args)
+        calls.append(([a.clone() if isinstance(a, torch.Tensor) else a
+                       for a in args], res))
+        return res
+
+    app = App(cfg, device="cuda")
+    fused.point_to_plane_icp = recording
+    try:
+        for i, (utime, pts, pose) in enumerate(items):
+            if i == ICP_GRAPH_WARM:
+                warm, first = icp.graph_counts(), len(calls)
+                icp.reset_graph_counts()
+            app.process_cloud(AlignedCloud.create(
+                utime, Cloud.from_numpy(pts, capacity=cfg.raw_capacity),
+                pose))
+    finally:
+        fused.point_to_plane_icp = solve
+    app.close()
+    after = icp.graph_counts()
+    iters = sum(res.n_iterations for _, res in calls[first:])
+    log(f"ICP graph, App over {len(items)} bench frames: before frame "
+        f"{ICP_GRAPH_WARM} {warm}, after it {after} ({iters} ICP "
+        f"iterations in {len(calls) - first} calls); keys "
+        f"{[(k[4][0][0][0], k[0].max_iterations) for k in icp._graphs]}")
+    assert warm["captures"] == 2 and after["captures"] == 0, (warm, after)
+    assert after["eager_iterations"] == 0, after
+    assert after["replays"] == iters > 0, (after, iters)
+
+    real_plan = icp.capture_plan
+
+    def run(args, graph: bool):
+        icp.capture_plan = real_plan if graph else (lambda *a, **k: False)
+        try:
+            before = _kernels.launch_counts()["nn_payload"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = icp.point_to_plane_icp(*args)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            return res, ms, _kernels.launch_counts()["nn_payload"] - before
+        finally:
+            icp.capture_plan = real_plan
+
+    ms = {True: [], False: []}
+    worst_m, worst_h, bitwise = 0.0, 0.0, True
+    for n, (args, in_app) in enumerate(calls[first:]):
+        got = {}
+        for graph in (True, False, False, True):
+            res, t, k1 = run(args, graph)
+            ms[graph].append(t)
+            got[graph] = (res, k1)
+        (g, k1_g), (e, k1_e) = got[True], got[False]
+        assert g.n_iterations == e.n_iterations == in_app.n_iterations, n
+        assert k1_g == k1_e == g.n_iterations, (n, k1_g, k1_e)
+        pts, mask = args[0], args[1]
+        gap = (pts @ (g.T - e.T)[:3, :3].T + (g.T - e.T)[:3, 3]).norm(dim=1)
+        worst_m = max(worst_m, float(gap[mask].max()))
+        worst_h = max(worst_h, float(((g.hessian - e.hessian).abs().max())
+                                     / e.hessian.abs().max()))
+        same = (torch.equal(g.T, e.T) and torch.equal(g.hessian, e.hessian)
+                and torch.equal(g.T, in_app.T))
+        bitwise = bitwise and same
+    log(f"ICP graph against the eager loop ({gpu_line()}): "
+        f"{len(calls) - first} calls, bitwise {bitwise}; widest gap of a "
+        f"filtered point {worst_m:.3g} m, hessian {worst_h:.3g} of its "
+        f"largest entry; host ms a call (synchronised) graph median "
+        f"{np.median(ms[True]):.3f} (min {min(ms[True]):.3f}), eager median "
+        f"{np.median(ms[False]):.3f} (min {min(ms[False]):.3f})")
+    assert worst_m <= CORR_GAP_M, worst_m
+
+    args = calls[-1][0]
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        res = icp.point_to_plane_icp(*args)
+        torch.cuda.synchronize()
+    names = collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    scans = sum(v for k, v in names.items() if "nn_scan_kernel" in k)
+    merges = sum(v for k, v in names.items() if "merge_kernel" in k)
+    log(f"ICP graph under the profiler: {res.n_iterations} iterations, "
+        f"{scans} K1 scans and {merges} merges seen, "
+        f"{sum(names.values())} device events")
+    assert scans == merges == res.n_iterations, (names, res.n_iterations)
+    return {"graph_ms": float(np.median(ms[True])),
+            "eager_ms": float(np.median(ms[False]))}
 
 
 def worst(got, want) -> dict:
@@ -2981,6 +3108,8 @@ def main() -> int:
     paths = [
         drive("frame", lambda: bench_ms.update(
             off=run_bench_slice(torch)), ("nn_payload", "banded_moments")),
+        drive("icp graph", lambda: bench_ms.update(run_icp_graph(torch)),
+              ("nn_payload", "banded_moments")),
         drive("golden", lambda: run_golden(torch),
               ("nn_payload", "radius_moments")),
         drive("localization", lambda: (
