@@ -20,6 +20,7 @@ import threading
 
 import torch
 
+from ..utils.timing import span
 from .banded_nn import SENTINEL, morton_codes
 from .knn import knn
 from .normals import (banded_by_shape, moments_to_normals,
@@ -255,8 +256,10 @@ def label_propagation_clusters(points, mask, normals, curvature, k: int = 15,
     `smoothness_deg` joins them; points over `curvature_thresh` may join
     but do not forward labels. Each round is one neighbour pull and
     `jumps_per_iter` pointer jumps L <- L[L], as in the JAX while_loop; the
-    loop here reads `changed` once per round and stops when nothing changed
-    or after `max_iters` rounds, so it returns the while_loop's labels.
+    loop here reads `changed` once per round (a span
+    "aicp.seg.propagation_read" of the port's tracer, one a read) and stops
+    when nothing changed or after `max_iters` rounds, so it returns the
+    while_loop's labels.
     `neighbor_idx` (N, >= k) reuses a kNN build (its first k columns)."""
     n = points.shape[0]
     if neighbor_idx is None:
@@ -279,7 +282,8 @@ def label_propagation_clusters(points, mask, normals, curvature, k: int = 15,
             jumped = new[torch.clamp(new, 0, n - 1)]
             new = torch.where(new < n, torch.minimum(new, jumped), n)
         new = torch.where(mask, new, n)
-        changed = bool((new != labels).any())
+        with span("aicp.seg.propagation_read"):
+            changed = bool((new != labels).any())
         labels = new
         _count_propagation("rounds")
         if not changed:

@@ -122,18 +122,24 @@ def risk_stage(cfg: PipelineConfig, ref_points, ref_mask, ref_pose, fpts,
     (at `ref_pose`) and the filtered reading (at `read_pose`), the
     alignability of their in-FOV subsets, and the classifier's P(failure)
     on (overlap, alignability) — -1 without a model. Returns (fov,
-    alignability, risk, risk_ok = risk <= risk_threshold), 0-d tensors."""
-    fov, a_in_b, b_in_a = fov_overlap(
-        ref_points, ref_mask, ref_pose, fpts, fmask, read_pose,
-        cfg.sensor_range, cfg.sensor_angular_view)
-    align, _ = alignability_filter(
-        ref_points, a_in_b, ref_pose, fpts, b_in_a, read_pose,
-        voxel_size=cfg.voxel_size, ds_capacity=cfg.align_ds_capacity,
-        max_clusters=cfg.align_max_clusters)
-    risk = torch.full_like(fov, -1.0)
-    if model is not None:
-        risk = model.predict_probability(torch.stack([overlap, align]))
-    return fov, align, risk, risk <= float(cfg.risk_threshold)
+    alignability, risk, risk_ok = risk <= risk_threshold), 0-d tensors.
+    Its parts are spans of the port's tracer: "aicp.risk.fov",
+    "aicp.risk.align" and "aicp.risk.classify"."""
+    with span("aicp.risk.fov"):
+        fov, a_in_b, b_in_a = fov_overlap(
+            ref_points, ref_mask, ref_pose, fpts, fmask, read_pose,
+            cfg.sensor_range, cfg.sensor_angular_view)
+    with span("aicp.risk.align"):
+        align, _ = alignability_filter(
+            ref_points, a_in_b, ref_pose, fpts, b_in_a, read_pose,
+            voxel_size=cfg.voxel_size, ds_capacity=cfg.align_ds_capacity,
+            max_clusters=cfg.align_max_clusters)
+    with span("aicp.risk.classify"):
+        risk = torch.full_like(fov, -1.0)
+        if model is not None:
+            risk = model.predict_probability(torch.stack([overlap, align]))
+        risk_ok = risk <= float(cfg.risk_threshold)
+    return fov, align, risk, risk_ok
 
 
 def make_app_frame_step(cfg: PipelineConfig, with_risk: bool = False,
@@ -155,7 +161,8 @@ def make_app_frame_step(cfg: PipelineConfig, with_risk: bool = False,
     like the overlap gate. The gates and the total-correction chaining run
     on the device. The step's stages are spans of the port's tracer
     (`utils.timing`): "aicp.step.prefilter", "aicp.step.overlap" (not with
-    a fixed overlap) and "aicp.step.icp".
+    a fixed overlap), "aicp.step.risk" (with `with_risk`) and
+    "aicp.step.icp".
     """
     debug_mode = cfg.working_mode != "robot"
     max_corr = float(cfg.max_correction_magnitude)
@@ -189,9 +196,10 @@ def make_app_frame_step(cfg: PipelineConfig, with_risk: bool = False,
         if with_risk:
             model = (SVMModel(clf_w, clf_b, clf_mean, clf_std)
                      if with_classifier else None)
-            fov, align, risk, risk_ok = risk_stage(
-                cfg, ref_points, ref_mask, ref_pose, fpts, fmask, read_pose,
-                overlap, model)
+            with span("aicp.step.risk"):
+                fov, align, risk, risk_ok = risk_stage(
+                    cfg, ref_points, ref_mask, ref_pose, fpts, fmask,
+                    read_pose, overlap, model)
 
         ratio = clamp_trim_ratio(overlap, cfg.trim_ratio_floor,
                                  cfg.trim_ratio_ceil)

@@ -28,10 +28,13 @@ The port's spans (PERF.md lists each site and the metric that reads it):
 `aicp.runner.prep_wait` (`SequenceRunner`), `aicp.app.lock_wait`,
 `aicp.app.dispatch`, `aicp.app.flush`, `aicp.app.finalize_wait`,
 `aicp.app.finalize` (`pipeline/app.py`), `aicp.step.prefilter`,
-`aicp.step.overlap`, `aicp.step.icp` (`pipeline/fused.py`), `aicp.icp.sync`
-and `aicp.icp.solve_check` (`registration/icp.py`, one per host read of
-ICP's convergence flag and of a linear-algebra call's error flag), and
-`aicp.icp.replay` (one per replay of ICP's captured iteration).
+`aicp.step.overlap`, `aicp.step.risk`, `aicp.step.icp`, and inside the
+risk stage `aicp.risk.fov`, `aicp.risk.align`, `aicp.risk.classify`
+(`pipeline/fused.py`), `aicp.seg.propagation_read` (`ops/segmentation.py`,
+one per host read of label propagation's convergence flag),
+`aicp.icp.sync` and `aicp.icp.solve_check` (`registration/icp.py`, one per
+host read of ICP's convergence flag and of a linear-algebra call's error
+flag), and `aicp.icp.replay` (one per replay of ICP's captured iteration).
 """
 from __future__ import annotations
 
