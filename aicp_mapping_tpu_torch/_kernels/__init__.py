@@ -8,18 +8,20 @@ loaded with `ctypes`; a changed source gets a new hash and so a new
 build. Nothing here runs at import time, so the CPU-only test
 machines import the package without `nvcc` or a card.
 
-Every kernel wrapper (in `ops/knn.py`, `ops/normals.py` and
-`ops/banded_nn.py`) adds one to its launch count right after its kernel
-was launched, so a run can show that the main path really went through
-the kernels. One exception: ICP's iteration captured as a CUDA graph
-(`registration/icp.py`) holds a K1 launch, which `nn_payload_kernel` does
-not count under the capture (nothing ran) and each replay counts once. K1 and K5 each have two modes, with a
-wrapper and a count each: K1's `nn_payload` (the ICP matcher) and
+Every kernel wrapper (in `ops/knn.py`, `ops/normals.py`,
+`ops/banded_nn.py` and `ops/segmentation.py`) adds one to its launch
+count right after its kernel was launched, so a run can show that the
+main path really went through the kernels. One exception: ICP's
+iteration captured as a CUDA graph (`registration/icp.py`) holds a K1
+launch, which `nn_payload_kernel` does not count under the capture
+(nothing ran) and each replay counts once. K1 and K5 each have two modes,
+with a wrapper and a count each: K1's `nn_payload` (the ICP matcher) and
 `nn_argmin` (its index mode), K5's `banded_nn_payload_stream` and
-`banded_nn_argmin`. Every C entry point launches a scan and a merge pass
-(`csrc/common.cuh:merge_kernel` for K1 and K5, `csrc/moments.cu:
-moments_merge_kernel` for K2 and K3); a wrapper counts the pair as one
-launch of its kernel.
+`banded_nn_argmin`. Every C entry point of the scans launches a scan and
+a merge pass (`csrc/common.cuh:merge_kernel` for K1 and K5,
+`csrc/moments.cu:moments_merge_kernel` for K2 and K3); a wrapper counts
+the pair as one launch of its kernel. Label propagation
+(`csrc/propagation.cu`) is one launch, counted once.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # One count per kernel, keyed by the name chip_smoke.py reports.
 _launches = {"nn_payload": 0, "nn_argmin": 0, "banded_moments": 0,
              "radius_moments": 0, "banded_nn_payload_stream": 0,
-             "banded_nn_argmin": 0}
+             "banded_nn_argmin": 0, "label_propagation": 0}
 _lib = None
 _lock = threading.Lock()
 
@@ -71,6 +73,10 @@ _SIGNATURES = {
     # splits, split_len, keys, dist_out, idx_out, stream
     "aicp_banded_nn_argmin": (_P, _I, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                               _P, _P, _P, _P),
+    # idx, ld, k, pull_ok, mask, n, max_iters, jumps, mode, scratch, out,
+    # rounds_total, stream
+    "aicp_label_propagation": (_P, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P,
+                               _P),
 }
 
 

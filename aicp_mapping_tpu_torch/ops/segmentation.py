@@ -8,7 +8,9 @@
   `hough_plane_labels`).
 - Region growing as the alignability filter runs it:
   `label_propagation_clusters` (min-label propagation over the kNN
-  smoothness graph), `filter_small_clusters` and `compact_labels`.
+  smoothness graph: on the card one launch of the label-propagation kernel,
+  `propagate_labels_kernel`; its plain twin `propagate_labels`),
+  `filter_small_clusters` and `compact_labels`.
 
 The output order is the cluster-balanced round-robin order cut to
 `out_capacity`, so which points survive depends on every sort's tie-break:
@@ -16,10 +18,13 @@ all sorts are stable, and the two-key sorts use one composite int64 key.
 """
 from __future__ import annotations
 
+import functools
 import threading
+from typing import NamedTuple
 
 import torch
 
+from .. import _kernels
 from ..utils.timing import span
 from .banded_nn import SENTINEL, morton_codes
 from .knn import knn
@@ -222,21 +227,36 @@ def _balanced_compaction_perm(labels: torch.Tensor,
     return idx2[_stable_perm(sel_key)]
 
 
-# Rounds run by `label_propagation_clusters` since the last reset: each
-# round reads one flag back to the host. The lock: an App's finalizer
-# thread may run a prefilter while its dispatch thread runs another.
+# Rounds run by label propagation since the last reset. The eager loop
+# (the CPU's) counts its rounds here, one host read each; the kernel adds
+# its rounds to a device counter per card, which `propagation_rounds` reads
+# only when asked. The lock: an App's finalizer thread may run a prefilter
+# while its dispatch thread runs another.
 _propagation = {"calls": 0, "rounds": 0}
+_device_rounds: dict = {}
 _propagation_lock = threading.Lock()
 
 
 def propagation_rounds() -> dict:
+    """Calls of `label_propagation_clusters` and rounds run, the kernel's
+    included (reading them waits for the card)."""
     with _propagation_lock:
-        return dict(_propagation)
+        out = dict(_propagation)
+        counters = list(_device_rounds.values())
+    for c in counters:
+        torch.cuda.synchronize(c.device)
+        out["rounds"] += int(c.item())
+    return out
 
 
 def reset_propagation_rounds() -> None:
     with _propagation_lock:
         _propagation.update(calls=0, rounds=0)
+        counters = list(_device_rounds.values())
+    for c in counters:
+        torch.cuda.synchronize(c.device)
+        c.zero_()
+        torch.cuda.synchronize(c.device)
 
 
 def _count_propagation(key: str) -> None:
@@ -244,37 +264,26 @@ def _count_propagation(key: str) -> None:
         _propagation[key] += 1
 
 
-def label_propagation_clusters(points, mask, normals, curvature, k: int = 15,
-                               smoothness_deg: float = 3.0,
-                               curvature_thresh: float = 1.0,
-                               max_iters: int = 64, neighbor_idx=None,
-                               jumps_per_iter: int = 6) -> torch.Tensor:
-    """Min-label propagation over the smoothness graph: labels (N,) int64,
-    the minimum point index of each cluster, -1 for invalid points.
+def _rounds_counter(device: torch.device) -> torch.Tensor:
+    with _propagation_lock:
+        if device not in _device_rounds:
+            _device_rounds[device] = torch.zeros(1, dtype=torch.int64,
+                                                 device=device)
+        return _device_rounds[device]
 
-    Two points share a label iff a chain of kNN pairs with normals within
-    `smoothness_deg` joins them; points over `curvature_thresh` may join
-    but do not forward labels. Each round is one neighbour pull and
-    `jumps_per_iter` pointer jumps L <- L[L], as in the JAX while_loop; the
-    loop here reads `changed` once per round (a span
+
+def propagate_labels(idx, pull_ok, mask, max_iters: int = 64,
+                     jumps_per_iter: int = 6) -> torch.Tensor:
+    """Plain twin of the label-propagation kernel, on any device: the
+    rounds of `label_propagation_clusters` given its neighbour lists `idx`
+    (N, k) and their pullable entries `pull_ok` (N, k). Each round is one
+    neighbour pull and `jumps_per_iter` pointer jumps L <- L[L], as in the
+    JAX while_loop; the loop reads `changed` once per round (a span
     "aicp.seg.propagation_read" of the port's tracer, one a read) and stops
     when nothing changed or after `max_iters` rounds, so it returns the
-    while_loop's labels.
-    `neighbor_idx` (N, >= k) reuses a kNN build (its first k columns)."""
-    n = points.shape[0]
-    if neighbor_idx is None:
-        _, idx = knn(points, mask, points, mask, k)
-    else:
-        idx = neighbor_idx[:, :k]
-    # in f32, as JAX computes it
-    cos_thresh = torch.cos(torch.deg2rad(torch.tensor(
-        smoothness_deg, dtype=torch.float32))).item()
-    dots = torch.einsum("nd,nkd->nk", normals, normals[idx]).abs()
-    nbr_ok = (dots >= cos_thresh) & mask[:, None] & mask[idx]
-    can_forward = (curvature <= curvature_thresh) & mask
-    pull_ok = nbr_ok & can_forward[idx]
-    labels = torch.where(mask, torch.arange(n, device=points.device), n)
-    _count_propagation("calls")
+    while_loop's labels: (N,) int64, -1 where `mask` is false."""
+    n = mask.shape[0]
+    labels = torch.where(mask, torch.arange(n, device=mask.device), n)
     for _ in range(max_iters):
         pulled = torch.where(pull_ok, labels[idx], n).amin(1)
         new = torch.minimum(labels, pulled)
@@ -289,6 +298,124 @@ def label_propagation_clusters(points, mask, normals, curvature, k: int = 15,
         if not changed:
             break
     return torch.where(mask, labels, -1)
+
+
+# The label-propagation kernel (_kernels/csrc/propagation.cu): one block,
+# its labels as 16-bit indices in shared memory where they fit. Its modes
+# and their bytes, as `layout` there computes them.
+PROPAGATION_SMEM = 232448        # shared memory a block may opt into, sm_90
+PROPAGATION_MAX_K = 127
+
+
+class PropagationPlan(NamedTuple):
+    mode: int                    # 0 all shared, 1 list global, 2 all global
+    smem_bytes: int
+    scratch_bytes: int
+
+
+def _align16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
+@functools.lru_cache(maxsize=None)
+def propagation_plan(n: int, k: int) -> PropagationPlan:
+    """The kernel's storage for n points of k neighbours, from n and k
+    alone: labels (three buffers), a byte a point and the compacted
+    neighbour list all in shared memory where they fit (mode 0), the list
+    in device memory where only the rest fits (mode 1), 32-bit and all in
+    device memory beyond (mode 2)."""
+    labels, meta = _align16(6 * n), _align16(n)
+    lst = _align16(2 * n * k)
+    if n <= 65535 and labels + meta + lst <= PROPAGATION_SMEM:
+        return PropagationPlan(0, labels + meta + lst, 0)
+    if n <= 65535 and labels + meta <= PROPAGATION_SMEM:
+        return PropagationPlan(1, labels + meta, lst)
+    return PropagationPlan(2, 0, _align16(12 * n) + meta
+                           + _align16(4 * n * k))
+
+
+def propagate_labels_kernel(idx, pull_ok, mask, max_iters: int = 64,
+                            jumps_per_iter: int = 6) -> torch.Tensor:
+    """The label-propagation kernel: `propagate_labels`' result in one
+    launch on the caller's stream, with no host read; its rounds go to the
+    card's counter (`propagation_rounds`). Plain `propagate_labels` on the
+    CPU. `idx` may be a column slice of a wider contiguous build."""
+    device_type = _kernels.check_tensors("label_propagation", pull_ok, mask)
+    n, k = pull_ok.shape
+    if idx.device != pull_ok.device:
+        raise ValueError(f"label_propagation: idx on {idx.device}")
+    if idx.shape != (n, k) or mask.shape != (n,) or (
+            n > 1 and k > 0 and idx.stride(1) != 1):
+        raise ValueError(f"label_propagation: idx {tuple(idx.shape)} "
+                         f"strides {idx.stride()}, pull_ok {(n, k)}, mask "
+                         f"{tuple(mask.shape)}")
+    if pull_ok.dtype != torch.bool or mask.dtype != torch.bool:
+        raise TypeError("label_propagation: bool pull_ok and mask")
+    if k > PROPAGATION_MAX_K:
+        raise ValueError(f"label_propagation: k={k} > {PROPAGATION_MAX_K}")
+    if device_type == "cpu":
+        return propagate_labels(idx, pull_ok, mask, max_iters,
+                                jumps_per_iter)
+    if idx.dtype != torch.int64:
+        raise TypeError("label_propagation: int64 indices on the card")
+    dev = mask.device
+    plan = propagation_plan(n, k)
+    out = torch.empty(n, dtype=torch.int64, device=dev)
+    scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
+    counter = _rounds_counter(dev)
+    with span("aicp.seg.propagation_launch"), torch.cuda.device(dev):
+        status = _kernels.library().aicp_label_propagation(
+            idx.data_ptr(), idx.stride(0) if n > 1 else k, k,
+            pull_ok.data_ptr(), mask.data_ptr(), n, max_iters,
+            jumps_per_iter, plan.mode, scratch.data_ptr(), out.data_ptr(),
+            counter.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    _kernels.check_status(status, "label_propagation")
+    _kernels.count_launch("label_propagation")
+    return out
+
+
+def smoothness_graph(points, mask, normals, curvature, k: int = 15,
+                     smoothness_deg: float = 3.0,
+                     curvature_thresh: float = 1.0, neighbor_idx=None):
+    """Region growing's graph: the k neighbours `idx` (N, k) of each point
+    (the first k columns of `neighbor_idx`, a kNN build, where given) and
+    `pull_ok` (N, k), which of them pass labels to it: both points valid,
+    normals within `smoothness_deg`, the neighbour at most
+    `curvature_thresh` curved."""
+    if neighbor_idx is None:
+        _, idx = knn(points, mask, points, mask, k)
+    else:
+        idx = neighbor_idx[:, :k]
+    # in f32, as JAX computes it
+    cos_thresh = torch.cos(torch.deg2rad(torch.tensor(
+        smoothness_deg, dtype=torch.float32))).item()
+    dots = torch.einsum("nd,nkd->nk", normals, normals[idx]).abs()
+    nbr_ok = (dots >= cos_thresh) & mask[:, None] & mask[idx]
+    can_forward = (curvature <= curvature_thresh) & mask
+    return idx, nbr_ok & can_forward[idx]
+
+
+def label_propagation_clusters(points, mask, normals, curvature, k: int = 15,
+                               smoothness_deg: float = 3.0,
+                               curvature_thresh: float = 1.0,
+                               max_iters: int = 64, neighbor_idx=None,
+                               jumps_per_iter: int = 6) -> torch.Tensor:
+    """Min-label propagation over the smoothness graph: labels (N,) int64,
+    the minimum point index of each cluster, -1 for invalid points.
+
+    Two points share a label iff a chain of kNN pairs with normals within
+    `smoothness_deg` joins them; points over `curvature_thresh` may join
+    but do not forward labels (`smoothness_graph`). The rounds are
+    `propagate_labels_kernel`'s: on the card one launch (a span
+    "aicp.seg.propagation_launch"), on the CPU the eager loop with a host
+    read a round; both return the JAX while_loop's labels.
+    `neighbor_idx` (N, >= k) reuses a kNN build (its first k columns)."""
+    idx, pull_ok = smoothness_graph(points, mask, normals, curvature, k,
+                                    smoothness_deg, curvature_thresh,
+                                    neighbor_idx)
+    _count_propagation("calls")
+    return propagate_labels_kernel(idx, pull_ok, mask, max_iters,
+                                   jumps_per_iter)
 
 
 def _segment_sizes(labels, mask, n: int) -> torch.Tensor:

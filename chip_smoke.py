@@ -113,7 +113,10 @@ moments kernels K2 and K3 must give their twins' neighbour counts at every
 point and the same bits on two launches; their lines also carry the
 share of rows equal to the twin's bits, the scan's and the merge's device
 times (`torch.profiler`) and the issue-rate floor of the scan's inner loop
-(`tools/kernel_sass.py`).
+(`tools/kernel_sass.py`). The label-propagation kernel must give the
+eager loop's labels bit for bit and its rounds, on an alignability cloud
+of 4,096 slots (`anymal_fp`'s shape) and at 16,384 and 32,768 points; its
+line carries its device time beside the eager loop's.
 Kernel times are device times by CUDA events: the stream sleeps before
 each timed loop, so that the host has queued every call first. Each
 kernel's line also carries the least time the card could take for the
@@ -171,6 +174,11 @@ KERNELS = {
     "banded_nn_argmin": dict(
         source="aicp_mapping_tpu_torch/_kernels/csrc/banded_nn.cu",
         replaces="aicp_mapping_tpu/ops/banded_nn.py:57"),
+    "label_propagation": dict(
+        source="aicp_mapping_tpu_torch/_kernels/csrc/propagation.cu",
+        replaces="none (port only): the eager loop of "
+                 "aicp_mapping_tpu_torch/ops/segmentation.py, where JAX "
+                 "runs a while_loop"),
 }
 GT_TOL = 0.06                     # m, tests/test_parallel.py:308
 # Golden-file tolerances of the risk stage (tests/test_golden.py): %, 0-100
@@ -368,6 +376,64 @@ def moment_numbers(k: dict, suffix: str = "") -> dict:
     return {key + suffix: k[key] for key in (
         "ms", "plain_ms", "bound_ms", "bit_equal_rows", "scan_us",
         "merge_us", "floor_us")}
+
+
+def check_propagation(torch, results: dict) -> None:
+    """Phase 3: the label-propagation kernel against the eager loop on the
+    same card tensors, at `anymal_fp`'s shape (an alignability cloud: 4,096
+    voxel-grid slots, 30-NN normals, a 15-NN graph) and at the region-
+    growing prefilter's 16,384 and 32,768 points: labels bit for bit, the
+    same rounds; the kernel's device time against the eager loop's, whose
+    rounds each end in a host read."""
+    from aicp_mapping_tpu_torch import _kernels
+    from aicp_mapping_tpu_torch.ops import normals, segmentation
+    from aicp_mapping_tpu_torch.ops.voxel import voxel_downsample
+    knn = importlib.import_module("aicp_mapping_tpu_torch.ops.knn")
+
+    dev = "cuda"
+    r = results.setdefault("label_propagation", {})
+    for n in (4096, 16384, 32768):
+        if n == 4096:
+            raw = torch.as_tensor(lidar_room(20000, seed=7), device=dev)
+            p, m = voxel_downsample(raw, torch.ones(20000, dtype=torch.bool,
+                                                    device=dev), 0.08, n)
+        else:
+            p = torch.as_tensor(lidar_room(n, seed=7), device=dev)
+            m = torch.arange(n, device=dev) < n - n // 32
+        _, nbr = knn.knn(p, m, p, m, 30)
+        nrm, curv, _ = normals.normals_from_neighbors(
+            p, m, nbr, torch.zeros(3, device=dev))
+        idx, pull_ok = segmentation.smoothness_graph(p, m, nrm, curv, 15,
+                                                     neighbor_idx=nbr)
+        args = (idx, pull_ok, m)
+        segmentation.reset_propagation_rounds()
+        want = segmentation.propagate_labels(*args)
+        rounds = segmentation.propagation_rounds()["rounds"]
+        segmentation.reset_propagation_rounds()
+        before = _kernels.launch_counts()["label_propagation"]
+        got = segmentation.propagate_labels_kernel(*args)
+        torch.cuda.synchronize()
+        assert _kernels.launch_counts()["label_propagation"] == before + 1
+        assert torch.equal(got, want), n
+        got_rounds = segmentation.propagation_rounds()["rounds"]
+        assert got_rounds == rounds, (n, got_rounds, rounds)
+        ms = time_ms(torch, lambda: segmentation.propagate_labels_kernel(
+            *args))
+        plain = time_ms(torch, lambda: segmentation.propagate_labels(*args),
+                        reps=5, warmup=1)
+        k = idx.shape[1]
+        b = bound(0, 8 * n * k + n * k + n + 8 * n)
+        plan = segmentation.propagation_plan(n, k)
+        log(f"label_propagation n={n} k={k} (mode {plan.mode}, "
+            f"{plan.smem_bytes} B shared, {int(m.sum())} valid): labels "
+            f"bit-equal, {rounds} rounds both; kernel {ms * 1e3:.1f} us "
+            f"({ms * 1e3 / rounds:.2f} us a round), eager loop "
+            f"{plain:.2f} ms, bound {b['bound_ms'] * 1e3:.2f} us "
+            f"({b['bound_by']})")
+        r.update({f"ms_{n}": ms, f"plain_ms_{n}": plain,
+                  f"rounds_{n}": rounds})
+        if n == 4096:
+            r.update(ms=ms, plain_ms=plain, rounds=rounds, **b)
 
 
 def check_kernels(torch, results: dict) -> None:
@@ -3099,6 +3165,7 @@ def main() -> int:
     scene = cells().map_scene()
     nn = nn_api_scenes(torch)
     check_kernels(torch, results)
+    check_propagation(torch, results)
     check_banded_kernels(torch, results, scene)
     check_nn_api_kernels(torch, results, nn)
     check_tie_scenes(torch)
@@ -3122,7 +3189,7 @@ def main() -> int:
               ("nn_payload", "radius_moments")),
         drive("frame with failure prediction", lambda: bench_ms.update(
             on=run_bench_slice(torch, risk=True)),
-            ("nn_payload", "banded_moments")),
+            ("nn_payload", "banded_moments", "label_propagation")),
         drive("register", lambda: run_register(torch),
               ("nn_argmin", "banded_nn_payload_stream", "nn_payload")),
         drive("nn api", lambda: run_nn_api(torch, nn),

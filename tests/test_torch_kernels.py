@@ -17,8 +17,9 @@ import pytest
 import torch
 
 from aicp_mapping_tpu_torch import _kernels
-from aicp_mapping_tpu_torch.ops import banded_nn, normals
+from aicp_mapping_tpu_torch.ops import banded_nn, normals, segmentation
 from aicp_mapping_tpu_torch.ops.segmentation import moments_for
+from aicp_mapping_tpu_torch.ops.voxel import voxel_downsample
 from aicp_mapping_tpu_torch.tools.synthetic import room_cloud
 
 torch.set_num_threads(1)
@@ -62,8 +63,78 @@ def test_build_is_keyed_by_the_sources():
     h = _kernels.source_hash()
     assert h == _kernels.source_hash() and len(h) == 16
     assert {s.name for s in _kernels.sources()} >= {
-        "nn_payload.cu", "moments.cu", "banded_nn.cu", "common.cuh"}
+        "nn_payload.cu", "moments.cu", "banded_nn.cu", "propagation.cu",
+        "common.cuh"}
     assert "arch=compute_90a,code=sm_90a" in _kernels.NVCC_FLAGS
+
+
+@pytest.mark.parametrize("n,k,mode", [
+    (1000, 15, 0), (4096, 15, 0), (6282, 15, 0), (6283, 15, 1),
+    (4096, 30, 1), (8192, 15, 1), (16384, 15, 1), (32768, 15, 1),
+    (33205, 15, 1), (33206, 15, 2), (65536, 15, 2), (0, 15, 0)])
+def test_propagation_plan(n, k, mode):
+    """Label propagation's storage by n and k alone: all in shared memory
+    up to 6,282 points of 15 neighbours (alignability's 4,096), the list
+    in device memory up to 33,205 (the region-growing prefilter's 8,192-
+    32,768), then all in device memory; never over a block's shared
+    memory."""
+    plan = segmentation.propagation_plan(n, k)
+    assert plan.mode == mode
+    assert plan.smem_bytes <= segmentation.PROPAGATION_SMEM
+    list_bytes = (2 if mode < 2 else 4) * n * k
+    assert (plan.smem_bytes if mode == 0 else plan.scratch_bytes) >= \
+        list_bytes
+    assert plan.scratch_bytes == 0 if mode == 0 else plan.scratch_bytes > 0
+    assert plan.smem_bytes % 16 == 0 and plan.scratch_bytes % 16 == 0
+
+
+def test_propagation_wrapper_on_the_cpu_runs_the_eager_loop():
+    """On CPU tensors the kernel's wrapper is the eager loop: the same
+    labels, one read span and one counted round a round, no launch; and
+    it refuses what the kernel would not take."""
+    from aicp_mapping_tpu_torch.utils import timing
+
+    idx, pull_ok, mask = _cpu_graph(600, 550)
+    segmentation.reset_propagation_rounds()
+    want = segmentation.propagate_labels(idx, pull_ok, mask)
+    rounds = segmentation.propagation_rounds()["rounds"]
+    assert rounds >= 2
+    before = _kernels.launch_counts()["label_propagation"]
+    timing.reset()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        got = segmentation.propagate_labels_kernel(idx, pull_ok, mask)
+    names = [s.name for s in timing.spans()]
+    timing.reset()
+    assert torch.equal(got, want)
+    assert names == ["aicp.seg.propagation_read"] * rounds
+    assert segmentation.propagation_rounds()["rounds"] == 2 * rounds
+    assert _kernels.launch_counts()["label_propagation"] == before
+    wide = torch.zeros((600, 30), dtype=torch.int64)
+    wide[:, :15] = idx
+    assert torch.equal(segmentation.propagate_labels_kernel(
+        wide[:, :15], pull_ok, mask), want)
+    with pytest.raises(ValueError):
+        segmentation.propagate_labels_kernel(
+            idx, pull_ok, torch.stack([mask, mask], 1)[:, 0])
+    with pytest.raises(ValueError):
+        segmentation.propagate_labels_kernel(idx[:599], pull_ok, mask)
+    with pytest.raises(ValueError):
+        segmentation.propagate_labels_kernel(
+            torch.zeros((600, 128), dtype=torch.int64),
+            torch.zeros((600, 128), dtype=torch.bool), mask)
+    with pytest.raises(TypeError):
+        segmentation.propagate_labels_kernel(idx, pull_ok.to(torch.uint8),
+                                             mask)
+
+
+def _cpu_graph(n, valid):
+    p = torch.as_tensor(_lidar_room(n, 3))
+    m = torch.arange(n) < valid
+    _, idx = knn.knn(p, m, p, m, 15)
+    nrm, curv, _ = normals.normals_from_neighbors(p, m, idx)
+    return segmentation.smoothness_graph(p, m, nrm, curv, 15,
+                                         neighbor_idx=idx) + (m,)
 
 
 @pytest.mark.cuda
@@ -503,3 +574,136 @@ def test_classifier_training_on_the_card_is_the_cpus(cuda):
                                atol=1e-6)
     torch.testing.assert_close(card.test(feats), cpu.test(feats), rtol=0,
                                atol=1e-4)
+
+
+def _alignability_graph(cuda, raw, seed):
+    """Region growing's graph on one alignability cloud, as
+    `overlap/alignability.py:_segment_cloud` builds it: a 0.08 m voxel grid
+    into 4,096 slots, one 30-NN build for the normals (toward the sensor at
+    the origin) and its first 15 columns for the graph. `raw` points fill
+    the slots (20,000) or part of them (3,000)."""
+    p = torch.as_tensor(_lidar_room(raw, seed), device=cuda)
+    dpts, dmask = voxel_downsample(p, torch.ones(raw, dtype=torch.bool,
+                                                 device=cuda), 0.08, 4096)
+    _, idx = knn.knn(dpts, dmask, dpts, dmask, 30)
+    nrm, curv, _ = normals.normals_from_neighbors(
+        dpts, dmask, idx, torch.zeros(3, device=cuda))
+    return segmentation.smoothness_graph(dpts, dmask, nrm, curv, 15,
+                                         neighbor_idx=idx) + (dmask,)
+
+
+def _lidar_graph(cuda, n, valid, seed):
+    """A 15-NN smoothness graph on n lidar points, the first `valid` of
+    them valid."""
+    p = torch.as_tensor(_lidar_room(n, seed), device=cuda)
+    m = torch.arange(n, device=cuda) < valid
+    _, idx = knn.knn(p, m, p, m, 15)
+    nrm, curv, _ = normals.normals_from_neighbors(p, m, idx)
+    return segmentation.smoothness_graph(p, m, nrm, curv, 15,
+                                         neighbor_idx=idx) + (m,)
+
+
+def _propagation_agrees(idx, pull_ok, mask, max_iters, jumps) -> int:
+    """The kernel against the eager loop on the same card tensors: the same
+    labels bit for bit, the same rounds (the kernel's from the card's
+    counter), one launch; returns the rounds."""
+    segmentation.reset_propagation_rounds()
+    want = segmentation.propagate_labels(idx, pull_ok, mask, max_iters,
+                                         jumps)
+    rounds = segmentation.propagation_rounds()["rounds"]
+    segmentation.reset_propagation_rounds()
+    before = _kernels.launch_counts()["label_propagation"]
+    got = segmentation.propagate_labels_kernel(idx, pull_ok, mask,
+                                               max_iters, jumps)
+    torch.cuda.synchronize()
+    assert _kernels.launch_counts()["label_propagation"] == before + 1
+    assert got.dtype == torch.int64
+    assert torch.equal(got, want)
+    assert segmentation.propagation_rounds()["rounds"] == rounds
+    assert rounds == max_iters or rounds < max_iters and torch.equal(
+        got, segmentation.propagate_labels(idx, pull_ok, mask, rounds + 1,
+                                           jumps))
+    return rounds
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("raw", [20000, 3000])
+@pytest.mark.parametrize("max_iters,jumps", [(64, 6), (2, 6), (64, 0)])
+def test_label_propagation_kernel_on_alignability_clouds(cuda, raw,
+                                                          max_iters, jumps):
+    """4,096 slots, all labels and lists in shared memory (mode 0): full
+    and partly filled clouds, converged and cut at 2 rounds, with and
+    without pointer jumps."""
+    idx, pull_ok, mask = _alignability_graph(cuda, raw, 5)
+    assert segmentation.propagation_plan(4096, 15).mode == 0
+    assert idx.stride() == (30, 1)
+    full = int(mask.sum()) == 4096
+    assert full == (raw == 20000)
+    rounds = _propagation_agrees(idx, pull_ok, mask, max_iters, jumps)
+    assert rounds >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,valid,mode", [
+    (1000, 937, 0), (16384, 15000, 1), (32768, 32768, 1),
+    (40000, 39000, 2)])
+@pytest.mark.parametrize("max_iters,jumps", [(64, 6), (2, 6), (64, 0)])
+def test_label_propagation_kernel_at_every_size(cuda, n, valid, mode,
+                                                max_iters, jumps):
+    """A ragged cloud, the region-growing prefilter's 16,384 and 32,768
+    points (labels in shared memory, lists in device memory) and past
+    them (all in device memory)."""
+    idx, pull_ok, mask = _lidar_graph(cuda, n, valid, n)
+    assert segmentation.propagation_plan(n, 15).mode == mode
+    _propagation_agrees(idx, pull_ok, mask, max_iters, jumps)
+
+
+@pytest.mark.cuda
+def test_alignability_with_the_kernel_is_the_eager_loops(cuda, monkeypatch):
+    """One alignability call on the card, label propagation by the kernel
+    and then by the eager loop: the same labels on both clouds, the same
+    matches, matched points, eigenvalues and value, bit for bit. The box
+    statistics sum floats with atomics on the card, in no fixed order, so
+    a point on a box's face may fall in or out from one call to the next
+    (seen: 2 of 1,024 box overlaps, by one point's share), and the
+    normals' centroids move by roundings: the box overlaps compare by the
+    share that differs, the centroid angles by their cosines (an angle
+    near 0 moves by ~0.02 degrees with one rounding of its cosine)."""
+    from aicp_mapping_tpu_torch.overlap.alignability import \
+        alignability_filter
+
+    a = torch.as_tensor(_lidar_room(20000, 11), device=cuda)
+    b = torch.as_tensor(_lidar_room(20000, 12), device=cuda) + torch.tensor(
+        [0.3, 0.1, 0.0], device=cuda)
+    ma = torch.ones(20000, dtype=torch.bool, device=cuda)
+    eye = torch.eye(4, device=cuda)
+    seen = []
+
+    def recorded(fn):
+        def run(*args):
+            seen.append(fn(*args))
+            return seen[-1]
+        return run
+
+    runs = []
+    for twin in (segmentation.propagate_labels_kernel,
+                 segmentation.propagate_labels):
+        monkeypatch.setattr(segmentation, "propagate_labels_kernel",
+                            recorded(twin))
+        before = _kernels.launch_counts()["label_propagation"]
+        runs.append(alignability_filter(a, ma, eye, b, ma, eye,
+                                        ds_capacity=4096, max_clusters=32))
+        torch.cuda.synchronize()
+        launched = _kernels.launch_counts()["label_propagation"] - before
+        assert launched == (2 if len(runs) == 1 else 0)
+    assert len(seen) == 4
+    assert torch.equal(seen[0], seen[2]) and torch.equal(seen[1], seen[3])
+    (got, dg), (want, dw) = runs
+    for key in ("matched_a", "n_matched_points", "eigvals"):
+        assert torch.equal(dg[key], dw[key]), key
+    assert torch.equal(got, want)
+    assert float(dw["n_matched_points"]) > 0
+    assert (dg["box_overlap"] != dw["box_overlap"]).float().mean() <= 0.01
+    cos_g, cos_w = (torch.cos(torch.deg2rad(d["centroid_angle"]))
+                    for d in (dg, dw))
+    torch.testing.assert_close(cos_g, cos_w, rtol=0, atol=1e-5)

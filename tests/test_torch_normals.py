@@ -225,7 +225,7 @@ def test_kernel_wrappers_use_plain_twins_on_cpu():
     assert _kernels.launch_counts() == {
         "nn_payload": 0, "nn_argmin": 0, "banded_moments": 0,
         "radius_moments": 0, "banded_nn_payload_stream": 0,
-        "banded_nn_argmin": 0}
+        "banded_nn_argmin": 0, "label_propagation": 0}
 
 
 def test_isolated_point_normals_match_jitted_jax():

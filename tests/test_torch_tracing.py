@@ -29,7 +29,7 @@ NAMES = {"aicp.wire.voxel", "aicp.wire.upload", "aicp.runner.prep_wait",
          "aicp.step.prefilter", "aicp.step.overlap", "aicp.step.icp",
          "aicp.icp.sync", "aicp.icp.solve_check", "aicp.step.risk",
          "aicp.risk.fov", "aicp.risk.align", "aicp.risk.classify",
-         "aicp.seg.propagation_read"}
+         "aicp.seg.propagation_read", "aicp.seg.propagation_launch"}
 # tests/test_torch_app_viz.py's golden scene, failure prediction on
 GOLDEN = dict(raw_capacity=8192, downsample_capacity=4096,
               filtered_capacity=2048, min_cluster_size=20,
