@@ -217,13 +217,53 @@ def gpu_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cells():
-    """The bench operating point (`bench_config`) and the map-scale
-    localization cells (`map_scene`, `CROP_RADIUS`, `sensor_frame`),
-    defined once in the port's localization profiler."""
-    from aicp_mapping_tpu_torch.tools import profile_localize
+# Map-scale localization: a 60 m room mapped at 262,140 points (padded to
+# 262,144) and scans of the same room (other samples) at the bench size.
+MAP_ARGS = dict(n=262144, size=60.0, seed=1, noise=0.01)
+SCAN_ARGS = dict(n_points=60000, step=1.2, seed=0, world_size=60.0,
+                 sensor_range=40.0, noise=0.02)
+CROP_RADIUS = 40.0                # the sensor range
 
-    return profile_localize
+
+def bench_config():
+    """The benchmark's operating point (bench.py:260-281) on the raw path."""
+    from aicp_mapping_tpu_torch.pipeline.config import PipelineConfig
+
+    cfg = PipelineConfig(raw_capacity=65536, downsample_capacity=16384,
+                         filtered_capacity=8192, quantized_upload=False,
+                         wire_voxel=0.0)
+    cfg.icp = dataclasses.replace(cfg.icp, coarse_iterations=6,
+                                  coarse_decimation=8)
+    return cfg
+
+
+def stream_config():
+    """bench.py's streaming operating point (bench.py:260-281) as the JAX
+    App runs it there: the bench capacities and coarse-to-fine ICP,
+    `pipeline_depth` 32, the host voxel grid at 0.08 m with the int16
+    upload, and async finalize."""
+    cfg = bench_config()
+    cfg.pipeline_depth = 32
+    cfg.quantized_upload = True
+    cfg.wire_voxel = 0.08
+    cfg.async_finalize = True
+    return cfg
+
+
+def map_scene(n_frames: int = 4):
+    """The prior map, and `n_frames` scans of the bench sequence with their
+    odometry and ground-truth poses."""
+    from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
+    from aicp_mapping_tpu_torch.tools.synthetic import room_cloud
+
+    items, gts = synthetic_sequence(n_frames=n_frames, **SCAN_ARGS)
+    return room_cloud(**MAP_ARGS), items, gts
+
+
+def sensor_frame(pts, odom):
+    """Odometry-frame points back to the sensor frame."""
+    odom = np.asarray(odom, np.float32)
+    return ((pts - odom[:3, 3]) @ odom[:3, :3]).astype(np.float32)
 
 
 def time_ms(torch, fn, reps=20, warmup=3) -> float:
@@ -320,6 +360,8 @@ def scan_and_merge_us(torch, fn, reps: int = 10) -> tuple:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from portbench.trace import load, port_kernel
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -331,10 +373,11 @@ def scan_and_merge_us(torch, fn, reps: int = 10) -> tuple:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
-        rows = cells()._port_kernels(cells()._device_events(path), reps)
-    scan = sum(v["ms"] for k, v in rows.items() if "scan" in k) * 1e3
-    merge = sum(v["ms"] for k, v in rows.items() if "merge" in k) * 1e3
-    assert scan > 0 and merge > 0, rows
+        kernels = [(port_kernel(e.name), e.dur) for e in load(path).device
+                   if e.cat == "kernel" and port_kernel(e.name)]
+    scan = sum(us for k, us in kernels if "scan" in k) / reps
+    merge = sum(us for k, us in kernels if "merge" in k) / reps
+    assert scan > 0 and merge > 0, kernels
     return scan, merge
 
 
@@ -586,7 +629,7 @@ def check_banded_kernels(torch, results: dict, scene) -> None:
     dev = "cuda"
     map_np, items, gts = scene
     loc = ShardedMapLocalizer(map_np, device=dev,
-                              crop_radius=cells().CROP_RADIUS,
+                              crop_radius=CROP_RADIUS,
                               out_capacity=131072)
     # K2 on the whole map, Morton-sorted as _radius_moments_banded sorts it
     p, m = loc.map_points, loc.map_mask
@@ -610,10 +653,10 @@ def check_banded_kernels(torch, results: dict, scene) -> None:
 
     # queries: scan 0 placed in the map, prefiltered as the App filters a
     # reading (8,192 points), under a small motion (an ICP iterate)
-    cfg = cells().bench_config()
+    cfg = bench_config()
     cell = cfg.icp.nn_cell_size
     _, pts, odom = items[0]
-    world = (cells().sensor_frame(pts, odom) @ gts[0][:3, :3].T
+    world = (sensor_frame(pts, odom) @ gts[0][:3, :3].T
              + gts[0][:3, 3])
     reading = App(cfg, device=dev).filter_cloud(
         Cloud.from_numpy(world, capacity=cfg.raw_capacity), gts[0][:3, 3])
@@ -995,13 +1038,13 @@ def run_bench_slice(torch, risk: bool = False, wire: bool = False) -> float:
     from aicp_mapping_tpu_torch.pipeline.sequence import (synthetic_sequence,
                                                           wire_cloud)
 
-    cfg = cells().stream_config() if wire else cells().bench_config()
+    cfg = stream_config() if wire else bench_config()
     if risk:
         cfg.failure_prediction_mode = True
         cfg.classifier_path = CLASSIFIER
     name = ("bench slice with failure prediction" if risk else
             "bench slice on the wire" if wire else "bench slice")
-    items, _ = synthetic_sequence(n_frames=6, **cells().SCAN_ARGS)
+    items, _ = synthetic_sequence(n_frames=6, **SCAN_ARGS)
     gpu, cpu = App(cfg, device="cuda"), App(cfg, device="cpu")
     calls = record_steps(gpu)
     gpu_ms, cpu_s = [], []
@@ -1089,9 +1132,8 @@ def run_icp_graph(torch) -> dict:
     from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
     from aicp_mapping_tpu_torch.registration import icp
 
-    cfg = cells().bench_config()
-    items, _ = synthetic_sequence(n_frames=ICP_GRAPH_FRAMES,
-                                  **cells().SCAN_ARGS)
+    cfg = bench_config()
+    items, _ = synthetic_sequence(n_frames=ICP_GRAPH_FRAMES, **SCAN_ARGS)
     icp._graphs.clear()
     icp.reset_graph_counts()
     calls = []
@@ -1205,7 +1247,7 @@ def worst(got, want) -> dict:
 
 def run_stream(torch) -> dict:
     """The "stream" phase: the streaming front-end at bench.py's own
-    operating point (`cells().stream_config()`: depth 32, the host voxel
+    operating point (`stream_config()`: depth 32, the host voxel
     grid at 0.08 m with the int16 upload, async finalize) on bench.py's
     40-frame sequence, driven as `bench.py:bench_app` drives the JAX App:
     `SequenceRunner(pipelined=True).run_clouds` over frames 0-1, then 2-39
@@ -1225,10 +1267,9 @@ def run_stream(torch) -> dict:
                                                           synthetic_sequence,
                                                           wire_cloud)
 
-    cfg = cells().stream_config()
+    cfg = stream_config()
     batch = cfg.pipeline_depth // 2
-    items, gts = synthetic_sequence(n_frames=STREAM_FRAMES,
-                                    **cells().SCAN_ARGS)
+    items, gts = synthetic_sequence(n_frames=STREAM_FRAMES, **SCAN_ARGS)
     smi = gpu_line()
     t0 = time.perf_counter()
     for _, pts, _ in items:
@@ -1351,7 +1392,7 @@ def drive_stream(torch, cfg, items, gts) -> int:
         try:
             for utime, pts, odom in items[:8]:
                 drv.on_pose(utime, odom)
-                drv.on_scan(utime, cells().sensor_frame(pts, odom))
+                drv.on_scan(utime, sensor_frame(pts, odom))
                 drv.flush()
         finally:
             drv.stop()
@@ -1563,10 +1604,10 @@ def run_localization(torch, scene, out_capacity: int) -> None:
     from aicp_mapping_tpu_torch.registration.icp import solver_plan
 
     map_np, items, gts = scene
-    cfg = cells().bench_config()
+    cfg = bench_config()
     plan = solver_plan(cfg.icp, cfg.filtered_capacity, out_capacity, "cuda")
     assert plan == {"nn": "banded", "coarse": True}, plan
-    kw = dict(pipeline_config=cfg, crop_radius=cells().CROP_RADIUS,
+    kw = dict(pipeline_config=cfg, crop_radius=CROP_RADIUS,
               out_capacity=out_capacity)
     before = _kernels.launch_counts()["banded_moments"]
     torch.cuda.synchronize()
@@ -1581,7 +1622,7 @@ def run_localization(torch, scene, out_capacity: int) -> None:
     for i, ((utime, pts, odom), gt) in enumerate(zip(items, gts)):
         cpu = localizer_from_state(localizer_state_to_numpy(gpu), cfg.icp,
                                    device="cpu", **kw)
-        local = cells().sensor_frame(pts, odom)
+        local = sensor_frame(pts, odom)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         pose_g = gpu.localize(local, odom, capacity=cfg.raw_capacity)
@@ -2258,8 +2299,8 @@ def run_pairs_and_checkpoints(torch) -> None:
             assert runs["cuda"][k] == runs["cpu"][k], k
         assert dp <= 1e-4, dp
 
-        cfg = cells().bench_config()
-        items, _ = synthetic_sequence(n_frames=6, **cells().SCAN_ARGS)
+        cfg = bench_config()
+        items, _ = synthetic_sequence(n_frames=6, **SCAN_ARGS)
 
         def frame(utime, pts, pose, dev="cuda"):
             return AlignedCloud.create(utime, Cloud.from_numpy(
@@ -2305,6 +2346,8 @@ def dtoh_per_frame(torch, step, frames: int) -> float:
 
     from torch.profiler import ProfilerActivity, profile
 
+    from portbench.trace import load
+
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(frames):
@@ -2313,10 +2356,10 @@ def dtoh_per_frame(torch, step, frames: int) -> float:
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as d:
         path = os.path.join(d, "trace.json")
         prof.export_chrome_trace(path)
-        events = cells()._device_events(path)
+        events = load(path).device
     assert events, "the profiler recorded no device events"
-    return sum(1 for cat, name, _, _ in events
-               if cat == "gpu_memcpy" and "DtoH" in name) / frames
+    return sum(1 for e in events
+               if e.cat == "gpu_memcpy" and "DtoH" in e.name) / frames
 
 
 def frame_publishes(vis, utime: int) -> dict:
@@ -2368,7 +2411,7 @@ def viz_bench(torch) -> dict:
     from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
     from aicp_mapping_tpu_torch.utils.visualizer import RecordingVisualizer
 
-    cfg = cells().bench_config()
+    cfg = bench_config()
     cfg.failure_prediction_mode = True
     cfg.classifier_path = CLASSIFIER
     # a reference update every 2 frames: the sink then reads the new
@@ -2376,7 +2419,7 @@ def viz_bench(torch) -> dict:
     # profiled frames
     cfg.reference_update_frequency = 2
     items, _ = synthetic_sequence(n_frames=VIZ_FRAMES + VIZ_PROFILED,
-                                  **cells().SCAN_ARGS)
+                                  **SCAN_ARGS)
     vis, cpu_vis = RecordingVisualizer(), RecordingVisualizer()
     apps = {"sink": App(cfg, device="cuda", visualizer=vis),
             "none": App(cfg, device="cuda")}
@@ -2446,12 +2489,12 @@ def viz_pipelined(torch) -> int:
     from aicp_mapping_tpu_torch.pipeline.sequence import synthetic_sequence
     from aicp_mapping_tpu_torch.utils.visualizer import RecordingVisualizer
 
-    cfg = cells().bench_config()
+    cfg = bench_config()
     cfg.pipeline_depth = 4
     cfg.async_finalize = True
     cfg.reference_update_frequency = 2
     items, _ = synthetic_sequence(n_frames=VIZ_FRAMES + VIZ_PROFILED,
-                                  **cells().SCAN_ARGS)
+                                  **SCAN_ARGS)
     vis = RecordingVisualizer()
     runs = {}
     for name, sink in (("sink", vis), ("none", None)):
@@ -2802,7 +2845,7 @@ def dist_reading(torch, mesh, tag: str, skip: dict) -> dict:
     from aicp_mapping_tpu_torch.registration.icp import (point_to_plane_icp,
                                                          solver_plan)
 
-    cfg = cells().bench_config().icp
+    cfg = bench_config().icp
     dev = mesh.device
     with not_path(skip):
         ref, normals, reading, T_pert = dist_scene(torch, 8192, 3, dev)
@@ -2852,7 +2895,7 @@ def dist_map(torch, mesh, map_np, skip: dict) -> dict:
     from aicp_mapping_tpu_torch.registration.icp import (point_to_plane_icp,
                                                          solver_plan)
 
-    cfg = cells().bench_config().icp
+    cfg = bench_config().icp
     dev = mesh.device
     eye, ratio = torch.eye(4, device=dev), torch.tensor(0.7, device=dev)
     with not_path(skip):
@@ -2918,12 +2961,12 @@ def dist_localizer(torch, mesh, scene) -> dict:
     from aicp_mapping_tpu_torch.parallel import ShardedMapLocalizer
 
     map_np, items, gts = scene
-    cfg = cells().bench_config()
+    cfg = bench_config()
     sync(torch)
     t0 = time.perf_counter()
     loc = ShardedMapLocalizer(map_np, cfg.icp, mesh=mesh,
                               pipeline_config=cfg,
-                              crop_radius=cells().CROP_RADIUS,
+                              crop_radius=CROP_RADIUS,
                               out_capacity=65536)
     sync(torch)
     out = {"load_ms": (time.perf_counter() - t0) * 1e3,
@@ -2933,7 +2976,7 @@ def dist_localizer(torch, mesh, scene) -> dict:
         return out
     frame_ms = []
     for i, ((_, pts, odom), gt) in enumerate(zip(items, gts)):
-        local = cells().sensor_frame(pts, odom)
+        local = sensor_frame(pts, odom)
         sync(torch)
         t0 = time.perf_counter()
         pose = loc.localize(local, odom, capacity=cfg.raw_capacity)
@@ -3162,7 +3205,7 @@ def main() -> int:
 
     # 3. each kernel against its plain twin
     results: dict = {}
-    scene = cells().map_scene()
+    scene = map_scene()
     nn = nn_api_scenes(torch)
     check_kernels(torch, results)
     check_propagation(torch, results)
