@@ -38,6 +38,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _kernels
+from ..utils import graphs
 
 _BIG = 3.4e38
 
@@ -194,10 +195,9 @@ def nn_payload_kernel(queries: torch.Tensor, qmask: torch.Tensor,
             keys.data_ptr(), dist.data_ptr(), pout.data_ptr(),
             torch.cuda.current_stream().cuda_stream)
     _kernels.check_status(status, "nn_payload")
-    # under a CUDA graph's capture the launch is only recorded: each of the
-    # graph's replays counts it (registration/icp.py)
-    if not torch.cuda.is_current_stream_capturing():
-        _kernels.count_launch("nn_payload")
+    # under a CUDA graph's capture (registration/icp.py) each replay counts
+    # the launch
+    graphs.counted(dev, _kernels.count_launch, "nn_payload")
     return dist, pout
 
 

@@ -304,8 +304,7 @@ def _eigh3x3_smallest(A: torch.Tensor):
     v = torch.gather(cands, -2, best[..., None, None].expand(
         best.shape + (1, 3)))[..., 0, :]
     norm = torch.sqrt(_sum3(v * v))[..., None]
-    up = torch.zeros(3, dtype=A.dtype, device=A.device)
-    up[2] = 1.0                      # degenerate (isotropic) case: +z
+    up = eye[2]                      # degenerate (isotropic) case: +z
     v = torch.where(norm > 1e-12, v / torch.clamp(norm, min=1e-12), up)
     return eigvals, v
 

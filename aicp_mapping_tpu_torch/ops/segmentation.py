@@ -18,6 +18,7 @@ all sorts are stable, and the two-key sorts use one composite int64 key.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import threading
 from typing import NamedTuple
@@ -25,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _kernels
+from ..utils import graphs
 from ..utils.timing import span
 from .banded_nn import SENTINEL, morton_codes
 from .knn import knn
@@ -363,15 +365,27 @@ def propagate_labels_kernel(idx, pull_ok, mask, max_iters: int = 64,
     out = torch.empty(n, dtype=torch.int64, device=dev)
     scratch = torch.empty(plan.scratch_bytes, dtype=torch.uint8, device=dev)
     counter = _rounds_counter(dev)
-    with span("aicp.seg.propagation_launch"), torch.cuda.device(dev):
+    # under a CUDA graph's capture the launch is only recorded: no span,
+    # and each of the graph's replays counts it
+    captured = graphs.capturing(dev)
+    with (contextlib.nullcontext() if captured
+          else span("aicp.seg.propagation_launch")), torch.cuda.device(dev):
         status = _kernels.library().aicp_label_propagation(
             idx.data_ptr(), idx.stride(0) if n > 1 else k, k,
             pull_ok.data_ptr(), mask.data_ptr(), n, max_iters,
             jumps_per_iter, plan.mode, scratch.data_ptr(), out.data_ptr(),
             counter.data_ptr(), torch.cuda.current_stream().cuda_stream)
     _kernels.check_status(status, "label_propagation")
-    _kernels.count_launch("label_propagation")
+    graphs.counted(dev, _kernels.count_launch, "label_propagation")
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _cos_threshold(smoothness_deg: float) -> float:
+    """cos(smoothness_deg) in f32, as JAX computes it, once per angle: a
+    host value, so that no device work reads it back."""
+    return torch.cos(torch.deg2rad(torch.tensor(
+        smoothness_deg, dtype=torch.float32))).item()
 
 
 def smoothness_graph(points, mask, normals, curvature, k: int = 15,
@@ -386,9 +400,7 @@ def smoothness_graph(points, mask, normals, curvature, k: int = 15,
         _, idx = knn(points, mask, points, mask, k)
     else:
         idx = neighbor_idx[:, :k]
-    # in f32, as JAX computes it
-    cos_thresh = torch.cos(torch.deg2rad(torch.tensor(
-        smoothness_deg, dtype=torch.float32))).item()
+    cos_thresh = _cos_threshold(smoothness_deg)
     dots = torch.einsum("nd,nkd->nk", normals, normals[idx]).abs()
     nbr_ok = (dots >= cos_thresh) & mask[:, None] & mask[idx]
     can_forward = (curvature <= curvature_thresh) & mask
@@ -413,7 +425,7 @@ def label_propagation_clusters(points, mask, normals, curvature, k: int = 15,
     idx, pull_ok = smoothness_graph(points, mask, normals, curvature, k,
                                     smoothness_deg, curvature_thresh,
                                     neighbor_idx)
-    _count_propagation("calls")
+    graphs.counted(mask.device, _count_propagation, "calls")
     return propagate_labels_kernel(idx, pull_ok, mask, max_iters,
                                    jumps_per_iter)
 

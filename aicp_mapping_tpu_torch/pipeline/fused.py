@@ -19,7 +19,9 @@ from ..overlap.fov import fov_overlap
 from ..ops.segmentation import plane_segmentation_filter
 from ..ops.voxel import voxel_downsample, voxel_set_overlap
 from ..registration.icp import clamp_trim_ratio, point_to_plane_icp
+from ..utils import graphs
 from ..utils.timing import span
+from . import risk_graph
 from .config import PipelineConfig
 
 
@@ -123,8 +125,20 @@ def risk_stage(cfg: PipelineConfig, ref_points, ref_mask, ref_pose, fpts,
     alignability of their in-FOV subsets, and the classifier's P(failure)
     on (overlap, alignability) — -1 without a model. Returns (fov,
     alignability, risk, risk_ok = risk <= risk_threshold), 0-d tensors.
-    Its parts are spans of the port's tracer: "aicp.risk.fov",
-    "aicp.risk.align" and "aicp.risk.classify"."""
+
+    On CUDA, from a key's second call on, the stage replays CUDA graphs
+    around its eigen-solves (`pipeline/risk_graph.py`): the same bits, a
+    span "aicp.risk.align" around it all. Elsewhere, and on a key's first
+    call, it runs eagerly, its parts spans of the port's tracer:
+    "aicp.risk.fov", "aicp.risk.align" and "aicp.risk.classify"."""
+    inputs = (ref_points, ref_mask, ref_pose, fpts, fmask, read_pose,
+              overlap)
+    key = None
+    if risk_graph.capture_plan(fpts.device):
+        key = risk_graph.graph_key(cfg, inputs, model)
+        rep = risk_graph.graph_for(key, cfg, inputs, model)
+        if rep is not None:
+            return rep.run(inputs, model)
     with span("aicp.risk.fov"):
         fov, a_in_b, b_in_a = fov_overlap(
             ref_points, ref_mask, ref_pose, fpts, fmask, read_pose,
@@ -135,10 +149,10 @@ def risk_stage(cfg: PipelineConfig, ref_points, ref_mask, ref_pose, fpts,
             voxel_size=cfg.voxel_size, ds_capacity=cfg.align_ds_capacity,
             max_clusters=cfg.align_max_clusters)
     with span("aicp.risk.classify"):
-        risk = torch.full_like(fov, -1.0)
-        if model is not None:
-            risk = model.predict_probability(torch.stack([overlap, align]))
-        risk_ok = risk <= float(cfg.risk_threshold)
+        risk, risk_ok = risk_graph.classify(cfg, fov, overlap, align, model)
+    graphs.count("risk", "eager_calls")
+    if key is not None:
+        risk_graph.warmed(key)
     return fov, align, risk, risk_ok
 
 

@@ -44,33 +44,28 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import threading
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .. import _kernels
 from ..geometry import se3
 from ..ops.banded_nn import (banded_prepare_payload, banded_window_starts,
                              morton_codes, nn_payload_banded_stream_kernel,
                              payload_rows)
 from ..ops.knn import nn_payload_kernel
 from ..ops.quantile import masked_quantile_hist
+from ..utils import graphs
+from ..utils.graphs import GRAPH_KEYS
 from ..utils.timing import span
 
 _BIG = 3.4e38
 # Validity guard for NN distances: far below the no-match sentinel.
 _VALID_DIST = 1e30
-# The captured solves kept (`capture_plan`), least recently used out first:
-# a caller whose shapes vary (the SLAM back-end) cycles through a few.
-GRAPH_KEYS = 8
+# The captured solves (`capture_plan`), at most `GRAPH_KEYS` of them, least
+# recently used out first (`utils.graphs`).
 _graphs: collections.OrderedDict = collections.OrderedDict()
-_graphs_lock = threading.Lock()
-# PyTorch allows one capture at a time in a process.
-_capture_lock = threading.Lock()
-_graph_counts = {"captures": 0, "replays": 0, "eager_iterations": 0}
-_count_lock = threading.Lock()
+graphs.register("icp", "captures", "replays", "eager_iterations")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,19 +148,15 @@ def capture_plan(config: ICPConfig, plan: dict, device, mesh=None) -> bool:
 def graph_counts() -> dict:
     """Captures, replays (one an iteration) and iterations run eagerly,
     since the last `reset_graph_counts`."""
-    with _count_lock:
-        return dict(_graph_counts)
+    return graphs.counts("icp")
 
 
 def reset_graph_counts() -> None:
-    with _count_lock:
-        for k in _graph_counts:
-            _graph_counts[k] = 0
+    graphs.reset_counts("icp")
 
 
 def _count(name: str, n: int = 1) -> None:
-    with _count_lock:
-        _graph_counts[name] += n
+    graphs.count("icp", name, n)
 
 
 def point_to_plane_icp(reading_points: torch.Tensor,
@@ -443,48 +434,29 @@ def _make_step(config: ICPConfig, match, work_points, work_mask, m_f,
 
 
 def _graph_key(config: ICPConfig, inputs) -> tuple:
-    """A captured solve's key: the configuration, the device, this thread
-    and its current stream (so that no two threads share buffers), and the
-    inputs' shapes and dtypes (a Python trim ratio as a float32 0-d)."""
-    dev, trim_ratio = inputs[0].device, inputs[-1]
+    """A captured solve's key (`utils.graphs.key`), a Python trim ratio as
+    a float32 0-d."""
+    trim_ratio = inputs[-1]
     ratio = (trim_ratio if isinstance(trim_ratio, torch.Tensor)
              else torch.empty((), dtype=torch.float32))
     tensors = [t for t in inputs[:5] if t is not None] + [ratio]
-    stream = (torch.cuda.current_stream(dev).cuda_stream
-              if dev.type == "cuda" else None)
-    return (config, str(dev), threading.get_ident(), stream,
-            tuple((tuple(t.shape), t.dtype) for t in tensors))
+    return graphs.key(config, tensors, inputs[0].device)
 
 
 def _graph_for(key, config: ICPConfig, inputs):
-    """The captured solve of `key`, or None on the key's first call: that
-    one runs eagerly, warming up cuBLAS, cuSOLVER and the allocator, and
-    then marks the key (`_warmed`). The second call captures."""
-    with _graphs_lock:
-        if key not in _graphs:
-            return None
-        _graphs.move_to_end(key)
-        rep = _graphs[key]
-    if rep is None:
+    """The captured solve of `key`, or None on the key's first call
+    (`utils.graphs.lookup`)."""
+    def make():
         rep = _Replay(config, inputs)
         rep.load(inputs)
         rep.capture()
-        with _graphs_lock:
-            _graphs[key] = rep
-            _evict()
-    return rep
+        return rep
+
+    return graphs.lookup(_graphs, key, make, GRAPH_KEYS)
 
 
 def _warmed(key) -> None:
-    with _graphs_lock:
-        _graphs.setdefault(key, None)
-        _graphs.move_to_end(key)
-        _evict()
-
-
-def _evict() -> None:
-    while len(_graphs) > GRAPH_KEYS:
-        _graphs.popitem(last=False)
+    graphs.warmed(_graphs, key, GRAPH_KEYS)
 
 
 class _Replay:
@@ -565,20 +537,8 @@ class _Replay:
                     torch.sqrt((s.w * s.r * s.r).sum() / wsum))
 
     def capture(self) -> None:
-        """PyTorch's recipe: warm `body` up on a side stream, then capture
-        it there. `thread_local`: other threads (the App's finalizer) may
-        work on the card meanwhile. The capture waits for the whole card
-        first, so the replays, on the caller's stream, follow the warm-up."""
-        dev = self.T.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.body()
-        graph = torch.cuda.CUDAGraph()
-        with _capture_lock, torch.cuda.graph(
-                graph, stream=side, capture_error_mode="thread_local"):
-            self.body()
-        self.graph = graph
+        """`body` as a CUDA graph (`utils.graphs.capture`)."""
+        self.graph = graphs.capture(self.body, self.T.device)
         _count("captures")
 
 
@@ -595,7 +555,6 @@ def _replayed(rep: _Replay, config: ICPConfig, inputs) -> ICPResult:
     while it < config.max_iterations:
         with span("aicp.icp.replay"):
             rep.graph.replay()
-        _kernels.count_launch("nn_payload")
         _count("replays")
         it += 1
         if it >= S or it == config.max_iterations:

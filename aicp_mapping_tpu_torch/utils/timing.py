@@ -30,10 +30,13 @@ The port's spans (PERF.md lists each site and the metric that reads it):
 `aicp.app.finalize` (`pipeline/app.py`), `aicp.step.prefilter`,
 `aicp.step.overlap`, `aicp.step.risk`, `aicp.step.icp`, and inside the
 risk stage `aicp.risk.fov`, `aicp.risk.align`, `aicp.risk.classify`
-(`pipeline/fused.py`), `aicp.seg.propagation_read` (`ops/segmentation.py`,
-one per host read of label propagation's convergence flag: the CPU's eager
-loop) and `aicp.seg.propagation_launch` (one per launch of the
-label-propagation kernel on the card),
+(`pipeline/fused.py`; on the card, from a key's second call, only
+`aicp.risk.align`) and `aicp.risk.replay` (`pipeline/risk_graph.py`, one
+per replay of a captured piece), `aicp.seg.propagation_read`
+(`ops/segmentation.py`, one per host read of label propagation's
+convergence flag: the CPU's eager loop) and `aicp.seg.propagation_launch`
+(one per launch of the label-propagation kernel on the card outside a
+capture),
 `aicp.icp.sync` and `aicp.icp.solve_check` (`registration/icp.py`, one per
 host read of ICP's convergence flag and of a linear-algebra call's error
 flag), and `aicp.icp.replay` (one per replay of ICP's captured iteration).
